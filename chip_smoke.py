@@ -19,6 +19,22 @@ Phases, one printed line each:
 6. reference: a shrunk detector serves the same windows on the card and on
    the CPU; representation and predictions must agree, and NMS must match box
    for box on tie-free predictions at the serve shape.
+7. train: the full-width detector takes train steps (``make_train_step``,
+   separable image-space warp) on batches of 8 windows with the paper's
+   strong augmentation planned per step; the warm-up step records the
+   arguments of both per-row rolls (kernel K3). After it, 3 steps at epoch 0
+   (ATSS) and 3 at epoch 5 (TAL) run with the launch counters zeroed before
+   and read after: K1 must run once a step and K3 twice. Then the stages of
+   a step are timed one by one (``train_stages_ms``).
+8. kernel_K3: K3 against its plain version on the card at the two captured
+   shapes (exactly equal, also with out-of-range starts, an odd W, bf16 and
+   every vector width; bit-identical across two launches), its time beside
+   its bound, the plain version's and one ``torch.gather``'s.
+9. warp: the separable warp on the card (K3) against the same function on
+   the CPU (plain roll) at 640 px with the paper recipe's plan.
+10. train_reference: one step of a shrunk detector at 128 px on the card
+   and on the CPU from the same weights: loss, gradients, updated parameters
+   and BatchNorm statistics must agree.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -27,12 +43,15 @@ and no result line.
 """
 from __future__ import annotations
 
+import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 H, W, N, B = 240, 304, 50_000, 8
@@ -43,6 +62,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 REPLACES = "event_representation_study_tpu/ops/pallas_scatter.py"
 SOURCE = "event_representation_study_tpu_torch/csrc/fused_segment_reduce.cu"
+K3_SOURCE = "event_representation_study_tpu_torch/csrc/roll_rows.cu"
+K3_REPLACES = "event_representation_study_tpu/ops/pallas_roll.py:25"
+TRAIN_STEPS = {0: 3, 5: 3}  # epoch -> timed steps: ATSS below epoch 4, TAL from it
+LABELS_PER_WINDOW = 8
 
 
 def require(ok: bool, what: str) -> None:
@@ -203,15 +226,354 @@ def tie_free_predictions(bsz: int, anchors: int, nc: int, seed: int) -> torch.Te
     return torch.cat([cxy, wh, torch.ones((bsz, anchors, 1)), scores], dim=-1)
 
 
-def randomize_preds_(model, generator):
-    """Random pred-conv weights, so that scores vary and NMS has work (the
-    seeded init leaves them at zero, as the reference does)."""
+def randomize_preds_(model, generator, which: str = "_pred_"):
+    """Random pred-conv weights (those whose name holds ``which``), so that
+    scores vary and NMS has work (the seeded init leaves them at zero, as
+    the reference does)."""
     with torch.no_grad():
         for name, mod in model.head.named_children():
-            if "_pred_" in name:
+            if which in name:
                 std = (1.0 / mod.weight[0].numel()) ** 0.5
                 mod.weight.normal_(0.0, std, generator=generator)
                 mod.bias.normal_(0.0, 0.5, generator=generator)
+
+
+def fake_labels(rng, n_windows: int = B, img: int = IMG):
+    """Per window, 1..LABELS_PER_WINDOW Gen1-like boxes (class, normalised
+    cx, cy, w, h) put into the letterboxed frame: (n, 5) [cls, x1, y1, x2, y2]."""
+    from event_representation_study_tpu_torch.ops.image import letterbox_labels
+
+    out = []
+    for _ in range(n_windows):
+        n = int(rng.integers(1, LABELS_PER_WINDOW + 1))
+        cxcy = rng.uniform(0.15, 0.85, (n, 2))
+        wh = rng.uniform(0.04, 0.3, (n, 2))
+        cls = rng.integers(0, 2, (n, 1))
+        out.append(letterbox_labels(
+            np.concatenate([cls, cxcy, wh], 1).astype(np.float32), H, W, img))
+    return out
+
+
+def make_batch(blocks, labels, hyp, rng, img: int = IMG):
+    """A train Batch: the plan and labels from the host planner."""
+    from event_representation_study_tpu_torch.data.augment import plan_augment_batch
+    from event_representation_study_tpu_torch.ops.warp import AugPlan
+    from event_representation_study_tpu_torch.parallel.train_step import Batch
+
+    cap = LABELS_PER_WINDOW * 4 * 2  # x4 mosaic tiles, x2 mixup partner
+    plan, lab, nl = plan_augment_batch(labels, img, hyp, rng, cap)
+    mask = (np.arange(cap)[None] < nl[:, None]).astype(np.float32)
+    return Batch(None, blocks, lab[..., 0], lab[..., 1:5], mask, AugPlan(**plan))
+
+
+def capture_roll_inputs(fn):
+    """Run ``fn`` and return its result with the arguments it passed to the
+    per-row roll (K3's wrapper), one tuple per call."""
+    from event_representation_study_tpu_torch.ops import warp
+
+    seen = []
+    real = warp.roll_rows
+
+    def roll_rows(*args):
+        seen.append(args)
+        return real(*args)
+
+    warp.roll_rows = roll_rows
+    try:
+        out = fn()
+    finally:
+        warp.roll_rows = real
+    return out, seen
+
+
+def solver_config(cfg):
+    from event_representation_study_tpu_torch.train.optim import SolverConfig
+
+    return SolverConfig(**{k: cfg["solver"][k] for k in (
+        "lr0", "lrf", "momentum", "weight_decay", "warmup_epochs", "warmup_momentum",
+        "warmup_bias_lr")})
+
+
+def loss_config(cfg):
+    from event_representation_study_tpu_torch.train.losses import LossConfig
+
+    hd = cfg["model"]["head"]
+    return LossConfig(num_classes=cfg["data"]["num_classes"], strides=tuple(hd["strides"]),
+                      reg_max=hd["reg_max"], iou_type=hd["iou_type"],
+                      warmup_epoch=hd["atss_warmup_epoch"])
+
+
+def train_setup(dev, n_batches: int):
+    """The full-width detector, its train state and step (separable warp),
+    and ``n_batches`` batches of B windows with the paper's strong
+    augmentation planned for each. Returns (state, step, batches, info)."""
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.ops.warp import separable_hyp_eligible
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        init_train_state, make_train_step)
+    from event_representation_study_tpu_torch.train.optim import (
+        accumulation_steps, build_optimizer, with_accumulation)
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    cfg = load_config("configs/gen1_optimized.py")
+    hyp = dict(cfg["data_aug"])
+    require(separable_hyp_eligible(hyp, IMG), "the paper recipe must fit the separable warp")
+    t0 = time.perf_counter()
+    model = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    # random box-pred convs: with Flax's zero init nothing upstream of them
+    # gets a gradient at first. The class preds keep their init (logits
+    # -4.6): random ones saturate sigmoid scores to 1.0 in float32, where the
+    # loss's clip at 1 - 1e-9 (== 1.0) leaves log(0), in the JAX package as here
+    randomize_preds_(model, torch.Generator(device=dev).manual_seed(6), which="reg_pred")
+    k_acc = accumulation_steps(B, nominal=B)  # nominal batch = batch: every step updates
+    sgd = build_optimizer(model, solver_config(cfg))
+    # start at the end of the warmup, as a run resumed there: every group has
+    # its learning rate (at update 0 the weight and BN groups have none)
+    sgd.count = max(round(sgd.cfg.warmup_epochs * sgd.cfg.steps_per_epoch), 1000)
+    state = init_train_state(model, with_accumulation(sgd, k_acc))
+    step = make_train_step(loss_config(cfg), "OptimizedRepresentation", (H, W), IMG,
+                           warp_impl="separable", device=dev)
+    info = {"build_s": time.perf_counter() - t0, "accumulate": k_acc,
+            "params": sum(p.numel() for p in model.parameters())}
+    rng = np.random.default_rng(0)
+    batches = [make_batch(fake_batch(1000 + 10 * i), fake_labels(rng), hyp, rng)
+               for i in range(n_batches)]
+    return state, step, batches, info
+
+
+def train_phase(dev):
+    """The full-width train step; returns (launches of the timed steps,
+    the K3 arguments captured in the warm-up step)."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.ops.image import letterbox_image
+    from event_representation_study_tpu_torch.parallel.train_step import batch_on_device
+
+    n_steps = sum(TRAIN_STEPS.values())
+    state, step, batches, info = train_setup(dev, n_steps + 1)
+    model = state.model
+
+    t0 = time.perf_counter()
+    (state, parts), k3_args = capture_roll_inputs(lambda: step(state, batches[0], 0))
+    warm = {k: v.item() for k, v in parts.items()}
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    require(len(k3_args) == 2, f"the separable warp rolled {len(k3_args)} times, not 2")
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    e0 = {k: v.clone() for k, v in state.ema.variables.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs.reset_launches()
+    roll.reset_launches()
+    times, per_step, i = [], [], 1
+    for epoch, count in TRAIN_STEPS.items():
+        for _ in range(count):
+            t = time.perf_counter()
+            state, parts = step(state, batches[i], epoch)
+            vals = {k: v.item() for k, v in parts.items()}  # host copy: waits
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            per_step.append(dict(epoch=epoch, **vals))
+            i += 1
+    launches = {**fs.LAUNCHES, **roll.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    changed = sum(not torch.equal(p0[n], p) for n, p in model.named_parameters())
+    ema_changed = sum(not torch.equal(e0[k], v) for k, v in state.ema.variables.items())
+    say("train", batch=B, events_per_window=N, img=IMG, **info, warmup_step_ms=warm_ms,
+        warmup_step=warm, ms_per_step=times, median_ms=statistics.median(times),
+        peak_mem_bytes=peak, steps=per_step,
+        launches=launches, params_changed=changed, params_total=len(p0),
+        ema_tensors_changed=ema_changed, optimizer_updates=state.opt_state.count,
+        roll_shapes=[list(a[0].shape) for a in k3_args], tf32=tf32_state())
+    require(launches[fs.K1] == n_steps, f"K1 launches {launches} for {n_steps} steps")
+    require(launches[roll.K3] == 2 * n_steps, f"K3 launches {launches} for {n_steps} steps")
+    require(all(math.isfinite(v) for st in per_step for v in st.values()), "finite losses")
+    require(all(st["num_pos"] > 0 for st in per_step), "every step has positive anchors")
+    # the reg branch of a level that held no positive anchor gets no gradient
+    require(changed >= 0.95 * len(p0), f"{len(p0) - changed} parameters did not change: " + str(
+        [n for n, p in model.named_parameters() if torch.equal(p0[n], p)]))
+    require(ema_changed >= 0.95 * len(e0), f"{len(e0) - ema_changed} EMA tensors did not change")
+
+    # where a step's device time goes: its stages replayed one by one
+    stages = {k: [] for k in ("ergo12", "letterbox", "warp", "forward_loss", "backward",
+                              "optimizer_ema")}
+    for j in range(3):
+        batch = batch_on_device(batches[j], dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        rep = step.rep_fn(batch.events)
+        ev[1].record()
+        img = letterbox_image(rep, IMG)
+        ev[2].record()
+        imgs = (step.warp(img, batch.aug, IMG) / 255.0).permute(0, 3, 1, 2)
+        ev[3].record()
+        model.zero_grad(set_to_none=True)
+        loss, _ = step.loss_fn(model, imgs, batch, 5)
+        ev[4].record()
+        loss.backward()
+        ev[5].record()
+        step.apply_update(state)
+        ev[6].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(stages, zip(ev, ev[1:])):
+            stages[k].append(a.elapsed_time(b))
+    say("train_stages_ms", epoch=5, tf32=tf32_state(),
+        **{k: statistics.median(v) for k, v in stages.items()},
+        all_runs=stages)
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return launches, k3_args
+
+
+def check_k3(k3_args):
+    """K3 against its plain version at the train step's pass V and pass H
+    shapes and at edge cases; times. Returns the kernels-line entry without
+    ``launches`` (ms, bound and yardsticks summed over the two passes of one
+    step)."""
+    from event_representation_study_tpu_torch.ops import roll
+
+    dev = k3_args[0][0].device
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    passes, checks, errs = {}, {}, []
+    for name, (x, starts, w_out) in zip(("pass_v", "pass_h"), k3_args):
+        w_in = x.shape[2]
+        wild = torch.randint(-60, w_in + 60, starts.shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+        odd = x[:, :, : w_in - 3].contiguous()  # W_in % 8 != 0 and != the captured one
+        for case, (xa, sa) in {"captured": (x, starts), "out_of_range": (x, wild),
+                               "odd_w": (odd, wild), "bf16": (x.to(torch.bfloat16), wild)
+                               }.items():
+            k = roll.roll_rows(xa, sa, w_out)
+            k2 = roll.roll_rows(xa, sa, w_out)
+            p = roll.roll_rows_plain(xa, sa, w_out)
+            checks[f"{name}.{case}"] = torch.equal(k, p) and torch.equal(k, k2)
+            errs.append((k.float() - p.float()).abs().max().item())
+            del k, k2, p
+        starts_c, x_c = starts.cpu(), x[:2].cpu()
+        checks[f"{name}.vs_cpu_plain"] = torch.equal(
+            roll.roll_rows(x[:2].contiguous(), starts[:2].contiguous(), w_out).cpu(),
+            roll.roll_rows_plain(x_c, starts_c[:2], w_out))
+        out = torch.empty((*x.shape[:2], w_out, x.shape[3]), dtype=x.dtype, device=dev)
+        s = starts.to(torch.int64).clamp(0, w_in - w_out)
+        idx = (s[..., None] + torch.arange(w_out, device=dev))[..., None].expand(out.shape)
+        idx = idx.contiguous()
+        nbytes = 2 * out.numel() * out.element_size()  # window read + output written
+        passes[name] = {
+            "shape": list(x.shape), "w_out": w_out,
+            "ms": cuda_ms(lambda: roll.roll_rows(x, starts, w_out), flush=flush),
+            "ms_warm_l2": cuda_ms(lambda: roll.roll_rows(x, starts, w_out)),
+            "plain_ms": cuda_ms(lambda: roll.roll_rows_plain(x, starts, w_out), flush=flush),
+            "library_ms": cuda_ms(lambda: torch.gather(x, 2, idx, out=out), flush=flush),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+        }
+        del out, idx, s
+    # every vector width of the kernel: 16 B (f32 C=12), 8 B (bf16 C=12),
+    # 4 B (f32 C=5), 2 B (bf16 C=5)
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (12, 5):
+            xs = torch.randn((2, 37, 101, c), generator=gen, device=dev).to(dtype)
+            ss = torch.randint(-9, 80, (2, 37), generator=gen, device=dev, dtype=torch.int32)
+            checks[f"width.{dtype}.C{c}"] = torch.equal(roll.roll_rows(xs, ss, 40),
+                                                        roll.roll_rows_plain(xs, ss, 40))
+    del flush
+    say("kernel_K3", passes=passes, **checks, max_abs_err=max(errs),
+        tolerance="exact (data movement)",
+        library="torch.gather along W into a preallocated output, index precomputed")
+    require(all(checks.values()), f"K3 disagrees with its plain version: {checks}")
+    total = {k: sum(p[k] for p in passes.values())
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"name": roll.K3, "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
+            "max_abs_err": max(errs), "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": total["library_ms"], "per_launch": passes}
+
+
+def warp_phase(dev):
+    """The separable warp on the card (K3) vs the CPU (plain roll) on
+    letterboxed ERGO-12 images of 4 windows (the planner mosaics only
+    batches of 4 or more) at 640 px, with the paper recipe's plan."""
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.ops.image import letterbox_image
+    from event_representation_study_tpu_torch.ops.warp import compose_warp_separable
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    hyp = dict(load_config("configs/gen1_optimized.py")["data_aug"])
+    rng = np.random.default_rng(25)  # a draw with mosaic on every row, mixup on 2, flips on 3
+    batch = make_batch(fake_batch(77, n_windows=4), fake_labels(rng, 4), hyp, rng)
+    imgs = letterbox_image(batched_representation("ERGO12", H, W)(batch.events.to(dev)), IMG)
+    plan = batch.aug.to(dev)
+    roll.reset_launches()
+    got = compose_warp_separable(imgs, plan, IMG)
+    torch.cuda.synchronize()
+    launches = roll.LAUNCHES[roll.K3]
+    want = compose_warp_separable(imgs.cpu(), batch.aug.to("cpu"), IMG)
+    err = (got.cpu() - want).abs().max().item()
+    rows = {"mosaic": int((plan.src_idx != plan.src_idx[:, :1]).any(1).sum()),
+            "mixup": int((plan.mix_r < 1).sum()), "flip_lr": int((plan.inv_affine[:, 0, 0] < 0).sum())}
+    say("warp", shape=list(got.shape), rows=rows, max_abs_err_vs_cpu=err, k3_launches=launches,
+        tolerance="1e-3 on the 0..255 scale (float32 elementwise arithmetic; the card may "
+                  "contract a multiply-add)", tf32=tf32_state())
+    require(launches == 2 and bool(torch.isfinite(got).all()), f"warp on the card: {launches}")
+    require(min(rows.values()) > 0, f"the plan exercises mosaic, mixup and flips: {rows}")
+    require(err <= 1e-3, f"warp card vs CPU: {err}")
+
+
+def train_reference(dev):
+    """One train step of a shrunk detector at 128 px, batch 4, mosaic and
+    mixup at 1.0, on the card and on the CPU from the same weights."""
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        TrainState, make_train_step)
+    from event_representation_study_tpu_torch.train.ema import ema_init
+    from event_representation_study_tpu_torch.train.optim import build_optimizer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    small = load_config("configs/gen1_optimized.py",
+                        overrides=["model.depth_multiple=0.2", "model.width_multiple=0.125"])
+    hyp = dict(small["data_aug"], mosaic=1.0, mixup=1.0)
+    img = 128
+    rng = np.random.default_rng(8)
+    batch = make_batch(fake_batch(9, n_windows=4, n_events=5000), fake_labels(rng, 4, img), hyp,
+                       rng, img)
+    base = build_model(small, 2, device="cpu", generator=torch.Generator().manual_seed(4))
+    randomize_preds_(base, torch.Generator().manual_seed(6))
+    out = {}
+    for d in ("cpu", dev):
+        model = copy.deepcopy(base).to(d)
+        opt = build_optimizer(model, solver_config(small))
+        opt.count = 1500  # past the warmup: every group has a learning rate
+        state = TrainState(model, opt, ema_init(model), 0)
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_train_step(loss_config(small), "OptimizedRepresentation", (H, W), img,
+                               warp_impl="separable", device=d)
+        state, parts = step(state, batch, 0)
+        out[d] = {
+            "parts": {k: v.item() for k, v in parts.items()},
+            "grads": {n: p.grad.cpu() for n, p in model.named_parameters()},
+            "delta": {n: (p.detach() - p0[n]).cpu() for n, p in model.named_parameters()},
+            "bn": {k: v.cpu() for k, v in model.state_dict().items() if "running" in k},
+        }
+
+    def leafwise(key):
+        """Largest card-CPU difference of a leaf over its largest CPU entry
+        plus 1e-3 of the largest over all leaves."""
+        got, want = out[dev][key], out["cpu"][key]
+        top = max(v.abs().max().item() for v in want.values())
+        return max(((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-3 * top)).item()
+                   for k in want)
+
+    c, g = out["cpu"]["parts"], out[dev]["parts"]
+    errs = {"loss_rel": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+            "grads": leafwise("grads"), "updates": leafwise("delta"), "bn_stats": leafwise("bn")}
+    say("train_reference", parts_card=g, parts_cpu=c, errors=errs,
+        tolerance="loss 1e-4 relative; gradients and parameter updates 2e-2, BN statistics "
+                  "2e-3, of each leaf's largest CPU entry plus 1e-3 of the largest over all "
+                  "leaves; positive anchors equal", tf32=tf32_state())
+    require(g["num_pos"] == c["num_pos"] > 0, f"positive anchors {g['num_pos']} vs {c['num_pos']}")
+    require(errs["loss_rel"] <= 1e-4 and errs["grads"] <= 2e-2 and errs["updates"] <= 2e-2
+            and errs["bn_stats"] <= 2e-3, f"train step card vs CPU: {errs}")
 
 
 def main() -> int:
@@ -240,10 +602,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.perf_counter()
-    report = cuda_build.build()
-    say("build", seconds=time.perf_counter() - t0,
-        compiled={cuda_build.SOURCE: report and report[0]},
-        ptxas=[ln for ln in (report[1] if report else "").splitlines() if "ptxas info" in ln])
+    report = cuda_build.build_all()
+    say("build", seconds=time.perf_counter() - t0, sources=list(cuda_build.SOURCES),
+        compile_s={name: r[0] for name, r in report.items()},
+        ptxas={name: [ln for ln in r[1].splitlines() if "ptxas info" in ln]
+               for name, r in report.items()})
 
     # 3. ERGO-12 on the card (K1) vs the plain version on the CPU
     blocks = fake_batch(0)
@@ -363,9 +726,19 @@ def main() -> int:
     require(torch.equal(n_g, n_c) and errs["nms_dets"] <= 1e-5 and int(n_c.min()) > 0,
             f"NMS card vs CPU: {errs}, counts {n_g.tolist()} vs {n_c.tolist()}")
 
-    k1["launches"] = launches[fs.K1]
+    # 7-10. training
+    train_launches, k3_args = train_phase(dev)
+    k3 = check_k3(k3_args)
+    warp_phase(dev)
+    train_reference(dev)
+
+    k1["launches"] = launches[fs.K1] + train_launches[fs.K1]
+    k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1]}
     k2["launches"] = launches_sum_only[fs.K2]
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2]}
+    k3["launches"] = train_launches["roll_rows"]
+    k3["launches_by_path"] = {"train": train_launches["roll_rows"]}
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

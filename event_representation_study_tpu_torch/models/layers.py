@@ -5,7 +5,9 @@ Submodules carry the Flax names (``conv``, ``bn``, ``cv1``, ``m``,
 ``block_0``, ``upsample``, ...), so a flattened Flax tree maps key for key
 onto ``state_dict()`` (:mod:`..utils.convert`). Torch needs input widths at
 construction where Flax infers them, hence the extra ``in_channels``.
-BatchNorm: Flax ``momentum=0.9`` is torch ``momentum=0.1``; eps 1e-5.
+BatchNorm: Flax ``momentum=0.9`` is torch ``momentum=0.1``; eps 1e-5; in
+train mode ``running_var`` tracks the biased batch variance, as Flax's does
+(:class:`BatchNorm2d`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,29 @@ from torch import nn
 _ACTS = {"silu": F.silu, "relu": F.relu}
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` uses the
+    biased batch variance (Flax) instead of the unbiased one (torch).
+
+    Torch's update gives v1 = (1 - m) * v0 + m * var * n / (n - 1) over n
+    values a channel; v1 - (v1 - (1 - m) * v0) / n = (1 - m) * v0 + m * var,
+    with no second pass over the input. The update runs on a copy, since
+    autograd keeps the tensor the batch-norm call was given. The
+    normalisation and the eval path are torch's own."""
+
+    def forward(self, x):
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        v1 = self.running_var.clone()
+        out = F.batch_norm(x, self.running_mean, v1, self.weight, self.bias, True,
+                           self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(v1 - (v1 - (1.0 - self.momentum) * self.running_var) / n)
+        return out
+
+
 class ConvBNAct(nn.Module):
     """Conv(k, s, pad k//2, no bias) + BatchNorm + SiLU or ReLU."""
 
@@ -24,7 +49,7 @@ class ConvBNAct(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               kernel_size // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_channels, eps=1e-5, momentum=0.1)
         self.act = act
 
     def forward(self, x):

@@ -107,7 +107,7 @@ def segment_reduce_sorted(
 def _launch(offs, vs, vm, num_segments: int):
     B, ks, n = vs.shape
     km = 0 if vm is None else vm.shape[1]
-    lib = load_library()
+    lib = load_library("fused_segment_reduce")
     sums = torch.empty((B, num_segments, ks), dtype=torch.float32, device=vs.device)
     maxes = (
         torch.empty((B, num_segments, km), dtype=torch.float32, device=vs.device)

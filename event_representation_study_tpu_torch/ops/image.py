@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +47,19 @@ def letterbox_image(img: torch.Tensor, new_shape: int) -> torch.Tensor:
     x = F.pad(x, (left, right, top, bottom), value=PAD_VALUE)
     out = x.permute(0, 2, 3, 1)
     return out if batched else out[0]
+
+
+def letterbox_labels(labels: np.ndarray, h0: int, w0: int, new_shape: int) -> np.ndarray:
+    """Host NumPy: (M, 5) [cls, cx, cy, w, h] normalised to (h0, w0) ->
+    [cls, x1, y1, x2, y2] pixels in the letterboxed frame."""
+    r, _, (dw, dh) = letterbox_geometry(h0, w0, new_shape)
+    out = labels.copy().astype(np.float32)
+    cx, cy, w, h = out[:, 1] * w0, out[:, 2] * h0, out[:, 3] * w0, out[:, 4] * h0
+    x1 = (cx - w / 2) * r + dw
+    y1 = (cy - h / 2) * r + dh
+    x2 = (cx + w / 2) * r + dw
+    y2 = (cy + h / 2) * r + dh
+    return np.stack([out[:, 0], x1, y1, x2, y2], axis=-1)
 
 
 def scale_coords_back(

@@ -1,0 +1,126 @@
+"""Detection loss (the JAX package's ``train/losses.py``): varifocal loss on
+the sigmoid class scores, GIoU on assigned positives and Distribution Focal
+Loss over the 4 x (reg_max + 1) regression bins, weighted 1 / 2.5 / 0.5,
+with ATSS assignment before ``warmup_epoch`` and TAL after it.
+
+Targets are fixed-capacity padded per image: ``gt_labels (B, M)``,
+``gt_bboxes (B, M, 4)`` xyxy image pixels, ``gt_mask (B, M)``; positives
+enter as mask-weighted dense sums.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.boxes import bbox2dist, dist2bbox, iou_loss
+from .anchors import generate_anchors_train
+from .assigners import atss_assigner, task_aligned_assigner
+
+
+class LossConfig(NamedTuple):
+    num_classes: int
+    strides: Tuple[int, ...] = (8, 16, 32, 64)
+    reg_max: int = 16
+    iou_type: str = "giou"
+    warmup_epoch: int = 4
+    weight_class: float = 1.0
+    weight_iou: float = 2.5
+    weight_dfl: float = 0.5
+    atss_topk: int = 9
+    tal_topk: int = 13
+
+
+def varifocal_loss(pred_score, gt_score, label, alpha: float = 0.75, gamma: float = 2.0):
+    """Focal-weighted BCE on probabilities, summed."""
+    weight = alpha * pred_score.pow(gamma) * (1 - label) + gt_score * label
+    p = pred_score.clamp(1e-9, 1 - 1e-9)
+    bce = -(gt_score * torch.log(p) + (1 - gt_score) * torch.log(1 - p))
+    return (bce * weight).sum()
+
+
+def _df_loss(pred_dist, target, reg_max: int):
+    """DFL: cross-entropy against the floor and ceil bins with linear
+    weights. ``pred_dist`` (..., 4, reg_max + 1) logits, ``target`` (..., 4)
+    in [0, reg_max)."""
+    tl = target.floor().to(torch.int64)
+    tr = tl + 1
+    wl = tr.to(target.dtype) - target
+    wr = 1.0 - wl
+    logp = F.log_softmax(pred_dist, dim=-1)
+    ll = -logp.gather(-1, tl[..., None])[..., 0]
+    lr = -logp.gather(-1, tr.clamp(max=reg_max)[..., None])[..., 0]
+    return (ll * wl + lr * wr).mean(-1, keepdim=True)
+
+
+def bbox_decode(anchor_points, pred_dist, reg_max: int):
+    """DFL softmax expectation, then ltrb -> xyxy. (The head without DFL is
+    not ported, ROADMAP M14.)"""
+    b, a, _ = pred_dist.shape
+    proj = torch.arange(reg_max + 1, dtype=pred_dist.dtype, device=pred_dist.device)
+    dist = torch.softmax(pred_dist.reshape(b, a, 4, reg_max + 1), dim=-1) @ proj
+    return dist2bbox(dist, anchor_points)
+
+
+def detection_loss(
+    outputs,  # (feats, pred_scores (B, A, nc), pred_distri (B, A, 4 * (reg_max + 1)))
+    gt_labels,  # (B, M) int
+    gt_bboxes,  # (B, M, 4) xyxy image pixels
+    gt_mask,  # (B, M) bool/float
+    feat_shapes: Sequence[Tuple[int, int]],
+    epoch: int,
+    cfg: LossConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    _, pred_scores, pred_distri = outputs
+    dev = pred_scores.device
+    anchors, anchor_points, n_anchors_list, stride_tensor = generate_anchors_train(
+        feat_shapes, cfg.strides, device=dev
+    )
+    gt_labels_ = gt_labels[..., None].to(torch.float32)
+    mask_gt = gt_mask[..., None].to(torch.float32)
+
+    anchor_points_s = anchor_points / stride_tensor
+    pred_bboxes = bbox_decode(anchor_points_s, pred_distri, cfg.reg_max)
+    # the assigners see no gradient (JAX: stop_gradient)
+    pd_scores = pred_scores.detach()
+    pd_boxes_img = pred_bboxes.detach() * stride_tensor
+
+    if cfg.warmup_epoch > 0 and epoch < cfg.warmup_epoch:
+        target_labels, target_bboxes, target_scores, fg_mask = atss_assigner(
+            anchors, n_anchors_list, gt_labels_, gt_bboxes, mask_gt, pd_boxes_img,
+            cfg.num_classes, topk=cfg.atss_topk,
+        )
+    else:
+        target_labels, target_bboxes, target_scores, fg_mask = task_aligned_assigner(
+            pd_scores, pd_boxes_img, anchor_points, gt_labels_, gt_bboxes, mask_gt,
+            topk=cfg.tal_topk,
+        )
+    target_bboxes = target_bboxes / stride_tensor
+
+    # classification
+    tl = torch.where(fg_mask, target_labels, cfg.num_classes)
+    one_hot = F.one_hot(tl, cfg.num_classes + 1)[..., : cfg.num_classes].to(pred_scores.dtype)
+    loss_cls = varifocal_loss(pred_scores, target_scores, one_hot)
+    tss = target_scores.sum()
+    denom = torch.where(tss > 1, tss, 1.0)  # normalisation guard
+    loss_cls = loss_cls / denom
+
+    # box and DFL losses on positives, mask-weighted dense sums
+    bbox_weight = target_scores.sum(-1) * fg_mask
+    iou_v = iou_loss(pred_bboxes, target_bboxes, cfg.iou_type)
+    loss_iou = ((1.0 - iou_v) * bbox_weight).sum() / denom
+    b, a, _ = pred_distri.shape
+    pd = pred_distri.reshape(b, a, 4, cfg.reg_max + 1)
+    target_ltrb = bbox2dist(anchor_points_s, target_bboxes, cfg.reg_max)
+    dfl = _df_loss(pd, target_ltrb, cfg.reg_max)[..., 0]
+    loss_dfl = (dfl * bbox_weight).sum() / denom
+
+    loss = cfg.weight_class * loss_cls + cfg.weight_iou * loss_iou + cfg.weight_dfl * loss_dfl
+    parts = {
+        "iou": cfg.weight_iou * loss_iou,
+        "dfl": cfg.weight_dfl * loss_dfl,
+        "cls": cfg.weight_class * loss_cls,
+        "num_pos": fg_mask.sum().to(torch.float32),
+    }
+    return loss, parts

@@ -1,5 +1,6 @@
-"""Carry detector weights from the JAX package to this port:
-``flax_to_torch(variables) -> state_dict``.
+"""Carry detector weights between the JAX package and this port:
+``flax_to_torch(variables) -> state_dict`` and, for comparing tensors leaf
+by leaf (weights, gradients, EMA), :func:`to_flax_leaves`, its inverse.
 
 ``variables`` is the JAX ``Detector``'s ``{"params", "batch_stats"}`` as
 nested dicts of numpy arrays. The torch submodules carry the Flax names, so
@@ -17,7 +18,7 @@ The result loads with ``Detector.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -52,3 +53,30 @@ def flax_to_torch(variables: Dict) -> Dict[str, torch.Tensor]:
         sd[f"{mod}.{stats[path[-1]]}"] = torch.from_numpy(np.ascontiguousarray(arr))
         sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def to_flax_leaves(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Port tensors named as in ``state_dict()`` or ``named_parameters()``
+    (parameters, their gradients, BatchNorm statistics, EMA entries) ->
+    flat ``{"params/a/b/kernel": array, "batch_stats/a/b/mean": array}`` in
+    Flax layouts. ``num_batches_tracked`` has no Flax counterpart and is
+    skipped."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in tensors.items():
+        *mod, leaf = name.split(".")
+        arr = t.detach().cpu().to(torch.float32).numpy()
+        coll = "params"
+        if leaf == "num_batches_tracked":
+            continue
+        if leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and arr.ndim == 4:
+            if mod[-2:] == ["upsample", "upsample"]:  # transpose conv
+                arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                arr = arr.transpose(2, 3, 1, 0)
+            leaf = "kernel"
+        elif leaf == "weight":  # the only 1-d weights are BatchNorm scales
+            leaf = "scale"
+        out["/".join([coll, *mod, leaf])] = np.ascontiguousarray(arr)
+    return out

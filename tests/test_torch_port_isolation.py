@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from event_representation_study_tpu_torch.events import h5_io
-from event_representation_study_tpu_torch.ops import fused_scatter
+from event_representation_study_tpu_torch.ops import fused_scatter, roll
 from event_representation_study_tpu_torch.reps import batched_representation
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -55,6 +55,14 @@ def test_make_server_defaults_to_cuda(no_cuda):
         make_server(cfg, "OptimizedRepresentation", 240, 304, 640)
 
 
+def test_train_step_defaults_to_cuda(no_cuda):
+    from event_representation_study_tpu_torch.parallel.train_step import make_train_step
+    from event_representation_study_tpu_torch.train.losses import LossConfig
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(LossConfig(2), "ERGO12")
+
+
 class _CudaLike(torch.Tensor):
     """A CPU tensor that reports itself as a CUDA tensor."""
 
@@ -77,6 +85,24 @@ def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
     assert fused_scatter.LAUNCHES[fused_scatter.K2] == 0
 
 
+def test_roll_wrapper_never_falls_back(no_cuda, monkeypatch):
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(roll, "roll_rows_plain", plain)
+    x = torch.zeros((1, 2, 8, 4)).as_subclass(_CudaLike)
+    with pytest.raises(RuntimeError):
+        roll.roll_rows(x, torch.zeros((1, 2), dtype=torch.int32), 5)
+    assert roll.LAUNCHES[roll.K3] == 0
+
+
+def _train_step(**kw):
+    from event_representation_study_tpu_torch.parallel.train_step import make_train_step
+    from event_representation_study_tpu_torch.train.losses import LossConfig
+
+    return make_train_step(LossConfig(2), **{"representation": "ERGO12", "device": "cpu", **kw})
+
+
 @pytest.mark.parametrize(
     "call,item",
     [
@@ -84,8 +110,13 @@ def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
         (lambda tmp: batched_representation("TORE", 4, 4), "M12"),
         (lambda tmp: h5_io.load_events_from_path(tmp / "x.h5"), "M9"),
         (lambda tmp: _build("EfficientRep"), "M14"),
+        (lambda tmp: _train_step(mode="fuseab"), "M14"),
+        (lambda tmp: _train_step(mode="distill"), "M14"),
+        (lambda tmp: _train_step(aug_mode="event"), "M13"),
+        (lambda tmp: _train_step(representation="LearnedRepresentation"), "M14"),
     ],
-    ids=["voxel_grid", "tore", "hdf5", "backbone"],
+    ids=["voxel_grid", "tore", "hdf5", "backbone", "train_fuseab", "train_distill",
+         "train_event_aug", "train_learned_rep"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
