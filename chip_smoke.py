@@ -11,6 +11,10 @@ Phases, one printed line each:
    at the serving path's shapes (sums to a stated tolerance, max and count
    columns exactly, bit-identical across two launches), and its time beside
    its bound, the plain version's and ``index_add_`` + ``scatter_reduce_``'s.
+   kernel_hard_shapes: K1/K2 on shapes the serve path does not give them (a
+   hot pixel, a tile spanning many chunks, an empty row, N % 4 != 0, an odd
+   S, the widest and narrowest column counts, B=1, the event mosaic's
+   200,000-event rows), exactly equal to the plain version, with their times.
 5. serve: the full-width ``configs/gen1_optimized.py`` detector serves
    requests of 8 windows through ``make_server``; the kernel launch counters
    are zeroed before and read after, and K1 must run once per request.
@@ -152,7 +156,7 @@ def check_kernel(label, kernel_args, count_cols, flush):
     entry without ``launches``."""
     from event_representation_study_tpu_torch.ops import fused_scatter as fs
 
-    seg_s, offs, vs, vm, num_segments = kernel_args
+    seg_s, vs, vm, num_segments = kernel_args
     bsz, ks, n = vs.shape
     km = 0 if vm is None else vm.shape[1]
     k_sum, k_max = fs.segment_reduce_sorted(*kernel_args)
@@ -168,8 +172,11 @@ def check_kernel(label, kernel_args, count_cols, flush):
         "count_cols_exact": torch.equal(k_sum[..., count_cols], p_sum[..., count_cols]),
         "max_exact": km == 0 or torch.equal(k_max, p_max),
     }
-    err_cpu = (k_sum.cpu() - c_sum).abs().max().item()
+    err_cpu = max((k.cpu() - c).abs().max().item()
+                  for k, c in ((k_sum, c_sum), (k_max, c_max)) if k is not None)
     require(all(checks.values()), f"{label}: kernel disagrees with its plain version: {checks}")
+    # both sum in event order: the card equals the CPU bit for bit
+    require(err_cpu == 0.0, f"{label}: kernel vs the plain version on the CPU: {err_cpu}")
 
     # library yardstick: index_add_ + scatter_reduce_ into preallocated outputs
     rows = torch.arange(bsz, device=vs.device)[:, None] * (num_segments + 1)
@@ -190,18 +197,15 @@ def check_kernel(label, kernel_args, count_cols, flush):
     ms_warm = cuda_ms(lambda: fs.segment_reduce_sorted(*kernel_args))
     plain_ms = cuda_ms(lambda: fs.segment_reduce_sorted_plain(*kernel_args), flush=flush)
     library_ms = cuda_ms(library, flush=flush)
+    # yardstick: writing the kernel's outputs alone
+    fill_ms = cuda_ms(lambda: [o.fill_(0.0) for o in (k_sum, k_max) if o is not None], flush=flush)
 
-    # the kernel reads the CSR offsets, the Ks+Km value columns of the valid
-    # events (not the sorted ids) and writes the (B, S, Ks+Km) outputs
-    n_valid = int(offs[:, -1].sum().item())
-    nbytes = 4 * (offs.numel() + n_valid * (ks + km) + bsz * num_segments * (ks + km))
-    flops = n_valid * (ks + km)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    t_bytes, t_ops, nbytes, flops = segment_reduce_bound(seg_s, ks, km, num_segments)
     say(label, shape={"B": bsz, "N": n, "S": num_segments, "Ks": ks, "Km": km},
         max_abs_err_vs_plain_card=err, max_abs_err_vs_plain_cpu=err_cpu,
         tolerance="sums rtol 1e-5 atol 1e-4 (plain uses float atomics); max and count columns exact",
         **checks, ms_l2_flushed=ms, ms_warm_l2=ms_warm, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+        library_ms=library_ms, fill_outputs_ms=fill_ms, bound_ms=max(t_bytes, t_ops), bytes=nbytes, flops=flops,
         tf32=tf32_state())
     return {
         "name": fs.K1 if km else fs.K2, "route": "cuda", "source": SOURCE,
@@ -210,6 +214,89 @@ def check_kernel(label, kernel_args, count_cols, flush):
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
+
+
+def segment_reduce_bound(seg_s, ks: int, km: int, num_segments: int):
+    """The least time any implementation needs: each valid event's id and
+    Ks+Km values read once, the (B, S, Ks+Km) outputs written once, one add
+    or max per value. Returns (bytes ms, operations ms, bytes, operations)."""
+    n_valid = int((seg_s < num_segments).sum().item())
+    nbytes = 4 * (n_valid * (1 + ks + km) + seg_s.shape[0] * num_segments * (ks + km))
+    flops = n_valid * (ks + km)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3, nbytes, flops
+
+
+# name -> (B, N, S, Ks, Km, layout of the ids): shapes the serve path does not give K1/K2
+HARD_SHAPES = {
+    "hot_pixel": (B, N, S, 18, 3, "hot"),  # one pixel holds 25% of a row's events
+    "multi_chunk_tile": (B, N, S, 18, 3, "dense_tile"),  # 20% of a row in 128 pixels of one tile
+    "empty_row": (3, N, S, 18, 3, "empty_row"),  # row 1 has num = 0
+    "n_unaligned": (B, N + 1, S, 18, 3, "uniform"),  # the 4-byte copy path
+    # odd S: rows after the first start their output tiles off a 16-byte boundary
+    "s_unaligned": (B, N, S - 1, 18, 3, "uniform"),
+    "ks32_km8": (2, N, S, 32, 8, "uniform"),
+    "ks1_km0": (2, N, S, 1, 0, "uniform"),
+    "b1": (1, N, S, 18, 3, "uniform"),
+    "event_mosaic": (B, 4 * N, S, 18, 3, "uniform"),  # 4 windows' events per row
+}
+
+
+def hard_shape_args(dev, gen, bsz: int, n: int, s: int, ks: int, km: int, layout: str):
+    """Sorted ids over ``s`` pixels with 5% padding ids (``s`` and above),
+    and values that are multiples of 1/64 in [-8, 8], so that every sum here
+    is exact in any order; sum column 0 counts events."""
+    seg = torch.randint(0, s, (bsz, n), generator=gen, device=dev, dtype=torch.int32)
+    seg[:, n - n // 20:] = s + torch.randint(0, 3 * s, (bsz, n // 20), generator=gen, device=dev,
+                                             dtype=torch.int32)
+    if layout == "hot":
+        seg[:, : n // 4] = 517
+    elif layout == "dense_tile":
+        seg[:, : n // 5] = 1024 + torch.randint(0, 128, (bsz, n // 5), generator=gen, device=dev,
+                                                dtype=torch.int32)
+    elif layout == "empty_row":
+        seg[1] = s
+    seg = torch.sort(seg, dim=1).values
+
+    def dyadic(k):
+        v = torch.randint(-512, 513, (bsz, k, n), generator=gen, device=dev)
+        return (v.to(torch.float32) / 64).contiguous()
+
+    vs = dyadic(ks)
+    vs[:, 0] = 1.0
+    return seg, vs, dyadic(km) if km else None, s
+
+
+def check_hard_shapes(dev, flush):
+    """K1/K2 on HARD_SHAPES against the plain version on the card (exactly
+    equal: the values make every sum exact) and on the CPU; their times."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    cases = {}
+    for name, (bsz, n, s, ks, km, layout) in HARD_SHAPES.items():
+        args = hard_shape_args(dev, gen, bsz, n, s, ks, km, layout)
+        k_sum, k_max = fs.segment_reduce_sorted(*args)
+        k_sum2, k_max2 = fs.segment_reduce_sorted(*args)
+        p_sum, p_max = fs.segment_reduce_sorted_plain(*args)
+        c_sum, c_max = fs.segment_reduce_sorted_plain(*(
+            a.cpu() if torch.is_tensor(a) else a for a in args))
+        torch.cuda.synchronize()
+        checks = {
+            "bit_identical_rerun": torch.equal(k_sum, k_sum2) and (km == 0 or torch.equal(k_max, k_max2)),
+            "sums_equal": torch.equal(k_sum, p_sum),
+            "max_equal": km == 0 or torch.equal(k_max, p_max),
+            "equal_cpu_plain": torch.equal(k_sum.cpu(), c_sum) and (km == 0 or torch.equal(k_max.cpu(), c_max)),
+        }
+        ms = cuda_ms(lambda: fs.segment_reduce_sorted(*args), flush=flush)
+        row0 = args[0][-1]
+        cases[name] = {"shape": {"B": bsz, "N": n, "S": s, "Ks": ks, "Km": km}, "layout": layout,
+                       "events_in_densest_pixel": int(torch.unique_consecutive(
+                           row0[row0 < s], return_counts=True)[1].max()),
+                       **checks, "ms": ms, "bound_ms": segment_reduce_bound(args[0], ks, km, s)[0]}
+        require(all(checks.values()), f"hard shape {name}: {checks}")
+        del args, k_sum, k_sum2, k_max, k_max2, p_sum, p_max
+    say("kernel_hard_shapes", cases=cases,
+        tolerance="exact: values are multiples of 1/64, so every sum is exact in any order")
 
 
 def tie_free_predictions(bsz: int, anchors: int, nc: int, seed: int) -> torch.Tensor:
@@ -620,7 +707,7 @@ def main() -> int:
     require(rep_err <= 2e-4, f"ERGO-12 card vs CPU plain: {rep_err}")
     glue_ms = cuda_ms(lambda: fs.sort_columns(*glue_args))
     say("ergo12", shape=list(rep_gpu.shape), max_abs_err_vs_cpu_plain=rep_err,
-        tolerance=2e-4, glue_sort_gather_columns_offsets_ms=glue_ms,
+        tolerance=2e-4, glue_sort_gather_columns_ms=glue_ms,
         e2e_ms=cuda_ms(lambda: fused_mdes.ergo12_fused_batched(blocks.to(dev), H, W), iters=10),
         tf32=tf32_state())
 
@@ -636,6 +723,7 @@ def main() -> int:
     plan2 = fused_mdes._plan(*sum_table)
     k2 = check_kernel("kernel_K2", k2_args, [i for i, c in enumerate(plan2[0]) if c[0] == "cnt"],
                       flush)
+    check_hard_shapes(dev, flush)
     del flush
 
     # 5. serve through the full-width paper detector

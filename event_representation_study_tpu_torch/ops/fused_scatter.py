@@ -5,12 +5,12 @@
 Pipeline per batch:
 1. torch glue (:func:`sort_columns`): one stable sort by segment id (equal to
    JAX's two-key sort on (segment, position)), a gather of the per-event
-   carry streams, the value columns from ``columns_fn``, and per-pixel CSR
-   offsets from ``searchsorted``.
+   carry streams, and the value columns from ``columns_fn``.
 2. :func:`segment_reduce_sorted`: per-segment sums of ``Ks`` columns and
    maxes of ``Km`` columns. On a CUDA tensor it launches the hand-written
    kernel ``csrc/fused_segment_reduce.cu`` (K1 when ``Km > 0``, K2 when
-   ``Km == 0``) or raises; on a CPU tensor it runs the plain PyTorch version
+   ``Km == 0``), which finds each pixel tile's event range in the sorted ids
+   itself, or raises; on a CPU tensor it runs the plain PyTorch version
    :func:`segment_reduce_sorted_plain` (``index_add_`` and
    ``scatter_reduce_("amax")``).
 
@@ -40,43 +40,32 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def sort_columns(seg, carry, columns_fn, num_segments: int):
+def sort_columns(seg, carry, columns_fn):
     """Sort glue. ``seg`` (B, N) int32 ids (invalid >= num_segments),
     ``carry`` per-event (B, N) streams that ride the sort, ``columns_fn``
     ``(sorted_pos, *sorted_carry) -> (vs (B, Ks, N), vm (B, Km, N) | None)``.
-    Returns ``(seg_s, offs (B, S + 1) int32, vs, vm)``."""
-    B = seg.shape[0]
+    Returns ``(seg_s, vs, vm)``."""
     seg_s, order = torch.sort(seg, dim=1, stable=True)
     carry_s = [torch.gather(c, 1, order) for c in carry]
     vs, vm = columns_fn(order.to(torch.int32), *carry_s)
-    bounds = torch.arange(num_segments + 1, dtype=seg_s.dtype, device=seg_s.device)
-    offs = torch.searchsorted(
-        seg_s, bounds.expand(B, -1).contiguous(), side="left", out_int32=True
-    )
-    return seg_s, offs, vs.contiguous(), None if vm is None else vm.contiguous()
+    return seg_s, vs.contiguous(), None if vm is None else vm.contiguous()
 
 
 def fused_segment_reduce(seg, carry, columns_fn, num_segments: int):
     """``(sums (B, S, Ks), maxes (B, S, Km) or None)``; maxes is None when
     ``columns_fn`` yields no max columns (the sum-only kernel K2)."""
-    return segment_reduce_sorted(
-        *sort_columns(seg, carry, columns_fn, num_segments), num_segments
-    )
+    return segment_reduce_sorted(*sort_columns(seg, carry, columns_fn), num_segments)
 
 
-def _check(seg_s, offs, vs, vm, num_segments: int) -> None:
+def _check(seg_s, vs, vm) -> None:
     if vs.dim() != 3 or vs.dtype != torch.float32:
         raise ValueError(f"vs must be float32 (B, Ks, N), got {vs.dtype} {tuple(vs.shape)}")
     B, ks, n = vs.shape
     if not 1 <= ks <= KS_MAX:
         raise ValueError(f"Ks={ks} outside the compiled range 1..{KS_MAX}")
-    if seg_s.shape != (B, n):
-        raise ValueError(f"seg_s shape {tuple(seg_s.shape)} != {(B, n)}")
-    if offs.dtype != torch.int32 or offs.shape != (B, num_segments + 1):
-        raise ValueError(
-            f"offs must be int32 {(B, num_segments + 1)}, got {offs.dtype} {tuple(offs.shape)}"
-        )
-    tensors = [seg_s, offs, vs]
+    if seg_s.dtype != torch.int32 or seg_s.shape != (B, n):
+        raise ValueError(f"seg_s must be int32 {(B, n)}, got {seg_s.dtype} {tuple(seg_s.shape)}")
+    tensors = [seg_s, vs]
     if vm is not None:
         if vm.dtype != torch.float32 or vm.dim() != 3 or vm.shape[::2] != (B, n):
             raise ValueError(f"vm must be float32 (B, Km, N), got {vm.dtype} {tuple(vm.shape)}")
@@ -84,27 +73,27 @@ def _check(seg_s, offs, vs, vm, num_segments: int) -> None:
             raise ValueError(f"Km={vm.shape[1]} above the compiled limit {KM_MAX}")
         tensors.append(vm)
     if any(t.device != vs.device for t in tensors):
-        raise ValueError("seg_s, offs, vs and vm must share one device")
+        raise ValueError("seg_s, vs and vm must share one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("seg_s, offs, vs and vm must be contiguous")
+        raise ValueError("seg_s, vs and vm must be contiguous")
 
 
 def segment_reduce_sorted(
-    seg_s, offs, vs, vm: Optional[torch.Tensor], num_segments: int
+    seg_s, vs, vm: Optional[torch.Tensor], num_segments: int
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Per-segment sums of ``vs`` and maxes of ``vm`` over events sorted by
-    segment. The kernel reads ``offs``; the plain version reads ``seg_s``."""
-    _check(seg_s, offs, vs, vm, num_segments)
+    """Per-segment sums of ``vs`` and maxes of ``vm`` over events whose
+    ids ``seg_s`` (B, N) int32 are sorted ascending in every row."""
+    _check(seg_s, vs, vm)
     if vm is not None and vm.shape[1] == 0:
         vm = None
     if vs.is_cuda:
-        return _launch(offs, vs, vm, num_segments)
+        return _launch(seg_s, vs, vm, num_segments)
     if vs.device.type != "cpu":
         raise ValueError(f"no kernel for device {vs.device}")
-    return segment_reduce_sorted_plain(seg_s, offs, vs, vm, num_segments)
+    return segment_reduce_sorted_plain(seg_s, vs, vm, num_segments)
 
 
-def _launch(offs, vs, vm, num_segments: int):
+def _launch(seg_s, vs, vm, num_segments: int):
     B, ks, n = vs.shape
     km = 0 if vm is None else vm.shape[1]
     lib = load_library("fused_segment_reduce")
@@ -116,7 +105,7 @@ def _launch(offs, vs, vm, num_segments: int):
     with torch.cuda.device(vs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_segment_reduce(
-            offs.data_ptr(), vs.data_ptr(), vm.data_ptr() if km else None,
+            seg_s.data_ptr(), vs.data_ptr(), vm.data_ptr() if km else None,
             sums.data_ptr(), maxes.data_ptr() if km else None,
             B, n, num_segments, ks, km, stream,
         )
@@ -127,11 +116,10 @@ def _launch(offs, vs, vm, num_segments: int):
     return sums, maxes
 
 
-def segment_reduce_sorted_plain(seg_s, offs, vs, vm, num_segments: int):
+def segment_reduce_sorted_plain(seg_s, vs, vm, num_segments: int):
     """Plain PyTorch version of the kernel: ``index_add_`` for the sums and
     ``scatter_reduce_("amax")`` over a ``NEG_INF``-filled output for the
     maxes. Ids >= ``num_segments`` go to a dropped trash row."""
-    del offs  # the ids carry the same information
     B, ks, n = vs.shape
     S = num_segments
     rows = torch.arange(B, device=vs.device)[:, None] * (S + 1)

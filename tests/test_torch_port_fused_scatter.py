@@ -5,6 +5,7 @@ kernels in interpret mode.
 Tolerance: sums rtol=atol=2e-4 (the Pallas kernel sums by one-hot matmul,
 the port in event order); max columns and count columns exactly.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,11 +24,13 @@ from torch_port_helpers import assert_close
 
 S = 16 * 64  # 1024 pixels = 2 Pallas tiles
 B, N = 2, 512
+N_UNALIGNED = 509  # N % 4 != 0: the kernel's 4-byte copy path
+CASES = ["random", "invalid", "empty", "hot", "unaligned"]
 
 
 def _seg(case, rng):
-    seg = rng.integers(0, S, size=(B, N))
-    if case == "invalid":  # padding ids == S and stray ids far above it
+    seg = rng.integers(0, S, size=(B, N_UNALIGNED if case == "unaligned" else N))
+    if case in ("invalid", "unaligned"):  # padding ids == S and stray ids far above it
         seg[:, -100:] = S
         seg[0, 10:30] = S + 7
         seg[1, 50:60] = 10 * S
@@ -58,12 +61,12 @@ def _columns(xp, km):
 
 
 @pytest.mark.parametrize("km", [2, 3, 0], ids=lambda k: f"km{k}")
-@pytest.mark.parametrize("case", ["random", "invalid", "empty", "hot"])
+@pytest.mark.parametrize("case", CASES)
 def test_plain_vs_pallas_interpret(case, km):
-    rng = np.random.default_rng(10 * ["random", "invalid", "empty", "hot"].index(case) + km)
+    rng = np.random.default_rng(10 * CASES.index(case) + km)
     seg = _seg(case, rng)
-    a = rng.normal(size=(B, N)).astype(np.float32)
-    b = rng.normal(size=(B, N)).astype(np.float32)
+    a = rng.normal(size=seg.shape).astype(np.float32)
+    b = rng.normal(size=seg.shape).astype(np.float32)
 
     want_s, want_m = jax_fused_segment_reduce(
         jnp.asarray(seg), (jnp.asarray(a), jnp.asarray(b)), _columns(jnp, km), S,
@@ -84,43 +87,49 @@ def test_plain_vs_pallas_interpret(case, km):
 
 
 def test_sort_glue_offsets():
-    """The CSR offsets bound every pixel's events in the stably sorted
-    stream, and the sorted positions keep event order within a pixel."""
+    """``sort_columns`` orders ids and events as the JAX package's two-key
+    ``lax.sort`` on (segment, position) does (``pallas_scatter.py:173``):
+    stable within a pixel (the hot case: most events in one pixel), padding
+    ids last (the invalid case), carry streams riding along."""
     rng = np.random.default_rng(5)
-    seg = torch.from_numpy(_seg("invalid", rng))
-    seen = {}
+    for case in ("invalid", "hot"):
+        seg = _seg(case, rng)
+        pos = np.broadcast_to(np.arange(N, dtype=np.int32), (B, N))
+        carry = rng.normal(size=(B, N)).astype(np.float32)
+        want_seg, want_pos, want_carry = jax.lax.sort(
+            (jnp.asarray(seg), jnp.asarray(pos), jnp.asarray(carry)), num_keys=2,
+            is_stable=False,
+        )
+        seen = {}
 
-    def columns_fn(pos_s, a):
-        seen["pos"] = pos_s
-        return a[:, None], None
+        def columns_fn(pos_s, c):
+            seen["pos"] = pos_s
+            return c[:, None], None
 
-    seg_s, offs, vs, vm = sort_columns(seg, (seg.to(torch.float32),), columns_fn, S)
-    assert offs.dtype == torch.int32 and offs.shape == (B, S + 1) and vm is None
-    for bi in range(B):
-        o = offs[bi].tolist()
-        assert o[S] == int((seg[bi] < S).sum())
-        for s in (0, 517, S - 1):
-            assert torch.all(seg_s[bi, o[s]:o[s + 1]] == s)
-            pos = seen["pos"][bi, o[s]:o[s + 1]]
-            assert torch.all(pos[1:] > pos[:-1])
-    torch.testing.assert_close(vs[:, 0], seg_s.to(torch.float32))
+        seg_s, vs, vm = sort_columns(torch.from_numpy(seg), (torch.from_numpy(carry),),
+                                     columns_fn)
+        assert seg_s.dtype == torch.int32 and seen["pos"].dtype == torch.int32 and vm is None
+        assert_close(f"{case}: sorted ids", seg_s, want_seg, atol=0)
+        assert_close(f"{case}: sorted positions", seen["pos"], want_pos, atol=0)
+        assert_close(f"{case}: sorted carry", vs[:, 0], want_carry, atol=0)
 
 
 def test_wrapper_checks_inputs():
     seg_s = torch.zeros((B, N), dtype=torch.int32)
-    offs = torch.zeros((B, S + 1), dtype=torch.int32)
     vs = torch.zeros((B, 4, N))
     with pytest.raises(ValueError, match="Ks"):
-        fused_scatter.segment_reduce_sorted(seg_s, offs, torch.zeros((B, 33, N)), None, S)
+        fused_scatter.segment_reduce_sorted(seg_s, torch.zeros((B, 33, N)), None, S)
     with pytest.raises(ValueError, match="Km"):
-        fused_scatter.segment_reduce_sorted(seg_s, offs, vs, torch.zeros((B, 9, N)), S)
-    with pytest.raises(ValueError, match="offs"):
-        fused_scatter.segment_reduce_sorted(seg_s, offs.to(torch.int64), vs, None, S)
+        fused_scatter.segment_reduce_sorted(seg_s, vs, torch.zeros((B, 9, N)), S)
+    with pytest.raises(ValueError, match="seg_s"):
+        fused_scatter.segment_reduce_sorted(seg_s.to(torch.int64), vs, None, S)
+    with pytest.raises(ValueError, match="seg_s"):
+        fused_scatter.segment_reduce_sorted(seg_s[:, :-1], vs, None, S)
     with pytest.raises(ValueError, match="contiguous"):
         fused_scatter.segment_reduce_sorted(
-            seg_s, offs, torch.zeros((B, N, 4)).transpose(1, 2), None, S
+            seg_s, torch.zeros((B, N, 4)).transpose(1, 2), None, S
         )
     # the plain version on CPU tensors launches nothing
     fused_scatter.reset_launches()
-    fused_scatter.segment_reduce_sorted(seg_s, offs, vs, None, S)
+    fused_scatter.segment_reduce_sorted(seg_s, vs, None, S)
     assert fused_scatter.LAUNCHES == {fused_scatter.K1: 0, fused_scatter.K2: 0}

@@ -78,10 +78,9 @@ def test_kernel_wrapper_never_falls_back(no_cuda, monkeypatch):
     monkeypatch.setattr(fused_scatter, "segment_reduce_sorted_plain", plain)
     B, N, S = 1, 8, 4
     seg_s = torch.zeros((B, N), dtype=torch.int32)
-    offs = torch.zeros((B, S + 1), dtype=torch.int32)
     vs = torch.zeros((B, 2, N)).as_subclass(_CudaLike)
     with pytest.raises(RuntimeError):
-        fused_scatter.segment_reduce_sorted(seg_s, offs, vs, None, S)
+        fused_scatter.segment_reduce_sorted(seg_s, vs, None, S)
     assert fused_scatter.LAUNCHES[fused_scatter.K2] == 0
 
 
