@@ -39,6 +39,20 @@ Phases, one printed line each:
 10. train_reference: one step of a shrunk detector at 128 px on the card
    and on the CPU from the same weights: loss, gradients, updated parameters
    and BatchNorm statistics must agree.
+11. event_mosaic: the event-space strong augmentation
+   (``reps/event_mosaic.py``) of 8 windows plus a partner pool of 2 at 640²
+   with the paper's recipe, one K1 launch, against the same call on the CPU
+   (event destinations equal, images within 0.05 on 0..255), timed; the
+   train phase's ``train_stages_ms`` times it on the train batches too.
+12. trainer: ``cli/train.py`` trains the full-width detector on synthetic
+   Gen1 splits (written by the port's ``write_gen1_fixture``) for 2 epochs
+   with ``--augment`` (epoch 0 event mosaic, epoch 1 event-space affine
+   after the stop-aug boundary), evaluating each epoch (COCO on the EMA,
+   ``last_ckpt``/``best_ckpt``); a fresh run resumes from ``last_ckpt`` for
+   a third epoch; ``cli/eval.py`` evaluates its last checkpoint to the
+   Trainer's AP. K1 runs exactly once a step and once an eval batch, K3
+   never. Prints the loader's host ms per batch, step ms, the eval speed
+   slots, checkpoint seconds and bytes (``trainer_host_ms``).
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -435,6 +449,7 @@ def train_phase(dev):
     from event_representation_study_tpu_torch.ops import roll
     from event_representation_study_tpu_torch.ops.image import letterbox_image
     from event_representation_study_tpu_torch.parallel.train_step import batch_on_device
+    from event_representation_study_tpu_torch.reps.event_mosaic import mosaic_event_rep
 
     n_steps = sum(TRAIN_STEPS.values())
     state, step, batches, info = train_setup(dev, n_steps + 1)
@@ -481,12 +496,14 @@ def train_phase(dev):
         [n for n, p in model.named_parameters() if torch.equal(p0[n], p)]))
     require(ema_changed >= 0.95 * len(e0), f"{len(e0) - ema_changed} EMA tensors did not change")
 
-    # where a step's device time goes: its stages replayed one by one
+    # where a step's device time goes: its stages replayed one by one;
+    # event_mosaic is the other executor of the same plan (aug_mode="event"),
+    # which replaces ergo12 + letterbox + warp
     stages = {k: [] for k in ("ergo12", "letterbox", "warp", "forward_loss", "backward",
-                              "optimizer_ema")}
+                              "optimizer_ema", "event_mosaic")}
     for j in range(3):
         batch = batch_on_device(batches[j], dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
         ev[0].record()
         rep = step.rep_fn(batch.events)
         ev[1].record()
@@ -501,6 +518,8 @@ def train_phase(dev):
         ev[5].record()
         step.apply_update(state)
         ev[6].record()
+        mosaic_event_rep(batch.events, batch.aug, "OptimizedRepresentation", (H, W), IMG)
+        ev[7].record()
         torch.cuda.synchronize()
         for k, (a, b) in zip(stages, zip(ev, ev[1:])):
             stages[k].append(a.elapsed_time(b))
@@ -663,6 +682,336 @@ def train_reference(dev):
             and errs["bn_stats"] <= 2e-3, f"train step card vs CPU: {errs}")
 
 
+MOSAIC_POOL = 2  # partner-pool rows of the event_mosaic phase
+
+
+def mosaic_plan(n_rows: int, seed0: int):
+    """Fake windows and a strong-aug plan with the paper's ``data_aug`` for
+    ``B`` emitted rows and ``n_rows - B`` partner-pool rows: the first draw
+    from ``seed0`` on whose emitted rows mosaic, mixup (one partner from the
+    pool) and a flip all occur."""
+    from event_representation_study_tpu_torch.data.augment import plan_augment_batch
+    from event_representation_study_tpu_torch.ops.warp import AugPlan
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    hyp = dict(load_config("configs/gen1_optimized.py")["data_aug"])
+    for seed in range(seed0, seed0 + 200):
+        rng = np.random.default_rng(seed)
+        plan, _, _ = plan_augment_batch(fake_labels(rng, n_rows), IMG, hyp, rng, 64, n_out=B)
+        p = {k: v[:B] for k, v in plan.items()}
+        rows = {"mosaic": int((p["src_idx"] != p["src_idx"][:, :1]).any(1).sum()),
+                "mixup": int((p["mix_r"] < 1).sum()),
+                "mixup_from_pool": int(((p["mix_r"] < 1) & (p["mix_idx"] >= B)).sum()),
+                "flip_lr": int((p["fwd_affine"][:, 0, 0] < 0).sum())}
+        if min(rows.values()) > 0:
+            return AugPlan(**plan), rows, seed
+    raise AssertionError("no plan draw exercises mosaic, pool mixup and flips")
+
+
+def event_mosaic_phase(dev):
+    """One full-width ``mosaic_event_rep`` (ERGO-12, 640², 8 emitted rows
+    plus a partner pool of 2 from which mixup draws) on the card (one K1
+    launch) against the same call on the CPU (the plain version). Returns
+    the K1 launches of the call."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.reps.event_mosaic import mosaic_event_rep
+
+    n_rows = B + MOSAIC_POOL
+    blocks = fake_batch(300, n_windows=n_rows)
+    plan, rows, seed = mosaic_plan(n_rows, 40)
+    blocks_d, plan_d = blocks.to(dev), plan.to(dev)
+    mosaic_event_rep(blocks_d, plan_d, "ERGO12", (H, W), IMG)  # warm-up
+    torch.cuda.synchronize()
+    fs.reset_launches()
+    got, glue, k1_args = capture_kernel_inputs(
+        lambda: mosaic_event_rep(blocks_d, plan_d, "ERGO12", (H, W), IMG))
+    torch.cuda.synchronize()
+    launches = dict(fs.LAUNCHES)
+    want, glue_cpu, _ = capture_kernel_inputs(
+        lambda: mosaic_event_rep(blocks, plan.to("cpu"), "ERGO12", (H, W), IMG))
+    err = (got.cpu() - want).abs().max().item()
+    seg_equal = torch.equal(glue[0].cpu(), glue_cpu[0])
+    times = []
+    for _ in range(3):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        mosaic_event_rep(blocks_d, plan_d, "ERGO12", (H, W), IMG)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    seg = glue[0]
+    say("event_mosaic", shape=list(got.shape), emitted_rows=B, pool_rows=MOSAIC_POOL,
+        plan_seed=seed, plan_rows=rows, k1_shape=list(k1_args[1].shape),
+        events_kept=int((seg < IMG * IMG).sum()),
+        events_of_the_tiles=int(blocks.num[torch.as_tensor(plan.src_idx).long()].sum()),
+        max_abs_err_vs_cpu=err, seg_equal_cpu=seg_equal, launches=launches,
+        ms_runs=times, median_ms=statistics.median(times),
+        tolerance="0.05 on the 0..255 scale; event destinations (seg) equal", tf32=tf32_state())
+    require(launches[fs.K1] == 1 and launches[fs.K2] == 0, f"event mosaic launches {launches}")
+    require(got.shape == (n_rows, IMG, IMG, 12) and bool(torch.isfinite(got).all()),
+            "event mosaic: shape or finiteness")
+    require(seg_equal and err <= 0.05, f"event mosaic card vs CPU: seg {seg_equal}, err {err}")
+    return launches[fs.K1]
+
+
+TRAINER_EPOCHS, TRAINER_BOXES = 2, 16
+
+
+def _trainer_fixture(root):
+    """Synthetic Gen1 splits from the port's writer: training 2 recordings x
+    16 boxes, validation 1 x 16, 200,000 events a recording; Blosc-ZSTD
+    chunks when this process can encode them (a Blosc codec, and h5py: the
+    HDF5 subset used without h5py, ``events/h5lite.py``, has no chunks).
+    Returns (what wrote it, seconds)."""
+    from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
+    from event_representation_study_tpu_torch.events import blosc_codec, h5lite
+
+    hdf5 = "h5lite" if blosc_codec.h5py is h5lite else "h5py"
+    blosc = blosc_codec.available() and hdf5 == "h5py"
+    t0 = time.perf_counter()
+    for split, files, seed in (("training.h5", 2, 1), ("validation.h5", 1, 2)):
+        write_gen1_fixture(root / split, num_files=files, boxes_per_file=TRAINER_BOXES,
+                           events_per_file=200_000, seed=seed, blosc=blosc)
+    return {"hdf5": hdf5, "blosc": blosc}, time.perf_counter() - t0
+
+
+class TrainerProbe:
+    """Wraps the Trainer's train step, the Evaler's eval step, the loader's
+    batch assembly and the checkpoint functions, recording per call what
+    the checks and the printed numbers need. The train step is followed by
+    a synchronise, so that its host time is the step's."""
+
+    def __init__(self):
+        self.steps, self.evals, self.batches, self.saves, self.restores = [], [], [], [], []
+        self.snapshot = None
+
+    def install(self):
+        from event_representation_study_tpu_torch.data.loader import EventBatchLoader
+        from event_representation_study_tpu_torch.ops import fused_scatter as fs
+        from event_representation_study_tpu_torch.ops import roll
+        from event_representation_study_tpu_torch.train import checkpoint, engine, evaler
+
+        probe = self
+        real = {"step": engine.make_train_step, "eval": evaler.make_eval_step,
+                "batch": EventBatchLoader._make_batch, "save": engine.save_checkpoint,
+                "restore": checkpoint.restore_train_state}
+
+        def launches():
+            return fs.LAUNCHES[fs.K1], roll.LAUNCHES[roll.K3]
+
+        def make_train_step(*a, **k):
+            step = real["step"](*a, **k)
+
+            def timed(state, batch, epoch):
+                if probe.snapshot is None:
+                    probe.snapshot = (
+                        {n: p.detach().clone() for n, p in state.model.named_parameters()},
+                        {n: v.clone() for n, v in state.ema.variables.items()})
+                before, step0, t = launches(), state.step, time.perf_counter()
+                state, parts = step(state, batch, epoch)
+                vals = {n: v.item() for n, v in parts.items()}  # waits for the step
+                ms = (time.perf_counter() - t) * 1e3
+                k1, k3 = (x - y for x, y in zip(launches(), before))
+                probe.steps.append(dict(epoch=epoch, step_before=step0, mosaic=batch.aug is not None,
+                                        k1=k1, k3=k3, ms=ms, **vals))
+                return state, parts
+
+            return timed
+
+        def make_eval_step(*a, **k):
+            step = real["eval"](*a, **k)
+
+            def counted(variables, batch):
+                before = launches()[0]
+                out = step(variables, batch)
+                probe.evals.append(launches()[0] - before)
+                return out
+
+            return counted
+
+        def make_batch(loader, indices):
+            t = time.perf_counter()
+            out = real["batch"](loader, indices)
+            hyp = loader.hyp
+            kind = ("eval" if hyp is None else "strong" if hyp["mosaic"] > 0 or hyp["mixup"] > 0
+                    else "affine")
+            probe.batches.append((kind, (time.perf_counter() - t) * 1e3))
+            return out
+
+        def save(path, *a, **k):
+            t = time.perf_counter()
+            real["save"](path, *a, **k)
+            probe.saves.append((time.perf_counter() - t, path.stat().st_size))
+
+        def restore(*a, **k):
+            t = time.perf_counter()
+            out = real["restore"](*a, **k)
+            probe.restores.append(time.perf_counter() - t)
+            return out
+
+        engine.make_train_step, evaler.make_eval_step = make_train_step, make_eval_step
+        EventBatchLoader._make_batch = make_batch
+        engine.save_checkpoint, checkpoint.restore_train_state = save, restore
+        self.real = real
+
+    def uninstall(self):
+        from event_representation_study_tpu_torch.data.loader import EventBatchLoader
+        from event_representation_study_tpu_torch.train import checkpoint, engine, evaler
+
+        engine.make_train_step, evaler.make_eval_step = self.real["step"], self.real["eval"]
+        EventBatchLoader._make_batch = self.real["batch"]
+        engine.save_checkpoint = self.real["save"]
+        checkpoint.restore_train_state = self.real["restore"]
+
+
+def trainer_phase(dev):
+    """``cli/train.py`` at the full width of ``configs/gen1_optimized.py`` on
+    synthetic Gen1 splits: 2 epochs with ``--augment`` (epoch 0 event
+    mosaic, epoch 1 after the stop-aug boundary the event-space affine),
+    eval each epoch, then a resume for a third epoch, then ``cli/eval.py``
+    on the last checkpoint. Returns the K1 launches of the two train runs
+    and the eval."""
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import eval as eval_cli
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.data.gen1 import Gen1H5
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.train import engine
+
+    stats = []
+    real_eval_and_save = engine.Trainer.eval_and_save
+
+    def eval_and_save(self, epoch):
+        stats.append(real_eval_and_save(self, epoch))
+        return stats[-1]
+
+    probe = TrainerProbe()
+    with tempfile.TemporaryDirectory() as tmp:
+        import pathlib
+
+        root = pathlib.Path(tmp)
+        written, fixture_s = _trainer_fixture(root)
+        ds = Gen1H5(root, "train", num_events=N)
+        n_windows, full = len(ds), sum(ds[i].num_events == N for i in range(len(ds)))
+        ds.h5.close()
+        args = ["--conf", "configs/gen1_optimized.py", "--data-path", tmp,
+                "--batch-size", str(B), "--img-size", str(IMG), "--num-events", str(N),
+                "--augment", "--aug-mode", "auto", "--stop-aug-last-n-epoch", "1",
+                "--eval-interval", "1"]
+        probe.install()
+        engine.Trainer.eval_and_save = eval_and_save
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fs.reset_launches()
+            t0 = time.perf_counter()
+            tr = train_cli.main(args + ["--epochs", str(TRAINER_EPOCHS),
+                                        "--output-dir", f"{tmp}/run1"])
+            run1_s = time.perf_counter() - t0
+            k1_run1 = fs.LAUNCHES[fs.K1]
+            steps1, evals1 = list(probe.steps), list(probe.evals)
+            changed = sum(not torch.equal(probe.snapshot[0][n], p)
+                          for n, p in tr.state.model.named_parameters())
+            ema_changed = sum(not torch.equal(probe.snapshot[1][n], v)
+                              for n, v in tr.state.ema.variables.items())
+            n_params, n_ema = len(probe.snapshot[0]), len(probe.snapshot[1])
+            ckpts = {c: (root / "run1" / c).exists() for c in ("last_ckpt", "best_ckpt")}
+            info = {"aug_mode": tr.aug_mode, "accumulate": tr.accumulate,
+                    "loader_batches": len(tr.train_loader), "val_batches": len(tr.val_loader),
+                    "optimizer_updates": tr.state.opt_state.count}
+            del tr
+            torch.cuda.empty_cache()
+
+            fs.reset_launches()
+            t0 = time.perf_counter()
+            tr2 = train_cli.main(args + ["--epochs", str(TRAINER_EPOCHS + 1),
+                                         "--checkpoint", f"{tmp}/run1/last_ckpt",
+                                         "--output-dir", f"{tmp}/run2"])
+            run2_s = time.perf_counter() - t0
+            k1_run2 = fs.LAUNCHES[fs.K1]
+            steps2, evals2 = probe.steps[len(steps1):], probe.evals[len(evals1):]
+            start_epoch, resumed_step = tr2.start_epoch, tr2.state.step
+            del tr2
+            torch.cuda.empty_cache()
+
+            fs.reset_launches()
+            cli_stats = eval_cli.main(["--conf", "configs/gen1_optimized.py", "--data-path", tmp,
+                                       "--checkpoint", f"{tmp}/run2/last_ckpt", "--task", "val",
+                                       "--batch-size", str(B), "--img-size", str(IMG),
+                                       "--num-events", str(N)])
+            k1_eval = fs.LAUNCHES[fs.K1]
+            evals3 = probe.evals[len(evals1) + len(evals2):]
+        finally:
+            probe.uninstall()
+            engine.Trainer.eval_and_save = real_eval_and_save
+        peak = torch.cuda.max_memory_allocated()
+
+    def median_by(rows, key, field):
+        vals = [r[field] for r in rows if key(r)]
+        return statistics.median(vals) if vals else None
+
+    loader_ms = {k: statistics.median([ms for kind, ms in probe.batches if kind == k])
+                 for k in ("strong", "affine", "eval")}
+    step_ms = {f"epoch_{e}": median_by(steps1 + steps2, lambda r: r["epoch"] == e, "ms")
+               for e in range(TRAINER_EPOCHS + 1)}
+    say("trainer", fixture={**written, "seconds": fixture_s, "train_windows": n_windows,
+                            "windows_full_at_50k": int(full)},
+        **info, run1_s=run1_s, run2_s=run2_s,
+        steps=[{k: r[k] for k in ("epoch", "mosaic", "k1", "k3", "loss", "num_pos")}
+               for r in steps1 + steps2],
+        k1_launches={"run1": k1_run1, "run2": k1_run2, "eval_cli": k1_eval},
+        eval_k1_per_batch=evals1 + evals2 + evals3,
+        params_changed=changed, params_total=n_params, ema_changed=ema_changed, ema_total=n_ema,
+        checkpoints=ckpts, start_epoch=start_epoch,
+        first_resumed_step=steps2[0]["step_before"] if steps2 else None,
+        steps_run1=len(steps1), resumed_step=resumed_step,
+        ap_trainer_last=stats[-1]["AP"], ap_eval_cli=cli_stats["AP"],
+        peak_mem_bytes=peak, tf32=tf32_state())
+    say("trainer_host_ms", loader_make_batch_median_ms=loader_ms,
+        loader_batches={k: sum(kind == k for kind, _ in probe.batches)
+                        for k in ("strong", "affine", "eval")},
+        step_ms_median=step_ms, step_ms=[r["ms"] for r in steps1 + steps2],
+        eval_speed_ms_per_image=[{k: s[k] for k in ("speed_pre_ms", "speed_infer_nms_ms",
+                                                     "speed_post_ms")} for s in stats],
+        eval_cli_speed_ms_per_image={k: cli_stats[k] for k in (
+            "speed_pre_ms", "speed_infer_nms_ms", "speed_post_ms")},
+        checkpoint_save=[{"s": s, "bytes": b} for s, b in probe.saves],
+        checkpoint_restore_s=probe.restores)
+
+    require(info["aug_mode"] == "event", f"aug_mode auto resolved to {info['aug_mode']}")
+    per_epoch = info["loader_batches"]
+    require(len(steps1) == TRAINER_EPOCHS * per_epoch and len(steps2) == per_epoch,
+            f"steps {len(steps1)} + {len(steps2)} for {per_epoch} batches an epoch")
+    for r in steps1 + steps2:
+        strong = r["epoch"] < TRAINER_EPOCHS - 1
+        require(r["mosaic"] == strong and r["k1"] == 1 and r["k3"] == 0,
+                f"epoch {r['epoch']} step: mosaic {r['mosaic']}, K1 {r['k1']}, K3 {r['k3']}")
+        require(all(math.isfinite(r[k]) for k in ("loss", "iou", "dfl", "cls")), f"losses {r}")
+    require(all(e == 1 for e in evals1 + evals2 + evals3) and
+            len(evals1) == TRAINER_EPOCHS * info["val_batches"] and
+            len(evals2) == len(evals3) == info["val_batches"],
+            f"eval batches {evals1} / {evals2} / {evals3}")
+    require(k1_run1 == len(steps1) + len(evals1) and k1_run2 == len(steps2) + len(evals2)
+            and k1_eval == len(evals3),
+            f"K1 launches {k1_run1}, {k1_run2}, {k1_eval} vs steps + eval batches")
+    # the learning rates are still in their warmup (at most a few thousandths
+    # of lr0 for weights): a change, not its size
+    require(changed > 0 and ema_changed > 0,
+            f"parameters changed {changed}/{n_params}, EMA {ema_changed}/{n_ema}")
+    require(all(ckpts.values()), f"checkpoints {ckpts}")
+    require(start_epoch == TRAINER_EPOCHS and steps2[0]["step_before"] == len(steps1)
+            and resumed_step == len(steps1) + len(steps2),
+            f"resume: start epoch {start_epoch}, first step {steps2[0]['step_before']}")
+    require(all(math.isfinite(v) for s in stats + [cli_stats] for k, v in s.items()
+                if isinstance(v, float)), "COCO stats finite")
+    require(all(k in s for s in stats for k in ("speed_pre_ms", "speed_infer_nms_ms",
+                                                 "speed_post_ms")), "speed slots")
+    require(abs(stats[-1]["AP"] - cli_stats["AP"]) <= 1e-6,
+            f"AP of the last eval {stats[-1]['AP']} vs cli/eval.py {cli_stats['AP']}")
+    return k1_run1 + k1_run2 + k1_eval
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -819,9 +1168,13 @@ def main() -> int:
     k3 = check_k3(k3_args)
     warp_phase(dev)
     train_reference(dev)
+    # 11-12. event-space augmentation, and training through the CLIs
+    mosaic_launches = event_mosaic_phase(dev)
+    trainer_launches = trainer_phase(dev)
 
-    k1["launches"] = launches[fs.K1] + train_launches[fs.K1]
-    k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1]}
+    k1["launches"] = launches[fs.K1] + train_launches[fs.K1] + mosaic_launches + trainer_launches
+    k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
+                              "event_mosaic": mosaic_launches, "trainer": trainer_launches}
     k2["launches"] = launches_sum_only[fs.K2]
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2]}
     k3["launches"] = train_launches["roll_rows"]

@@ -53,7 +53,8 @@ def make_server(cfg: Dict, representation: str, H: int, W: int, img_size: int,
                 conf_thres: float = 0.03, device="cuda") -> Server:
     """Build the detector of ``cfg`` on ``device`` (``cuda`` unless the caller
     asks for ``cpu``; raises when CUDA is absent), initialised from a
-    generator seeded with 0 (no checkpoint), and return its :class:`Server`."""
+    generator seeded with 0, and return its :class:`Server`; ``main`` loads
+    a checkpoint's weights into ``server.model``."""
     device = resolve_device(device)
     nc = cfg.get("data", {}).get("num_classes", 2)
     rep_fn = batched_representation(representation, H, W)
@@ -67,11 +68,14 @@ def main(args=None):
     from ..events.core import from_structured, stack_blocks
     from ..events.h5_io import load_events_from_path
     from ..ops.image import scale_coords_back
+    from ..train.checkpoint import load_checkpoint, load_model_variables, model_variables
     from ..utils.config import load_config
 
     p = argparse.ArgumentParser("event detector inference (PyTorch port)")
-    p.add_argument("--events", type=str, required=True, help=".npz/.npy event file")
-    p.add_argument("--checkpoint", type=str, default=None)
+    p.add_argument("--events", type=str, required=True, help=".h5/.npz/.npy event file")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="train checkpoint (its EMA weights) or stripped checkpoint; "
+                        "seeded random weights if omitted")
     p.add_argument("--conf", type=str, default="configs/gen1_optimized.py")
     p.add_argument("--representation", type=str, default="OptimizedRepresentation")
     p.add_argument("--img-size", type=int, default=640)
@@ -80,11 +84,6 @@ def main(args=None):
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--override", nargs="*", default=[])
     args = p.parse_args(args)
-    if args.checkpoint:
-        raise SystemExit(
-            "--checkpoint is not supported by the PyTorch port yet (orbax "
-            "checkpoints are ROADMAP M10); omit it to serve seeded random weights"
-        )
 
     ev = load_events_from_path(args.events)
     H = int(ev["y"].max()) + 1
@@ -94,8 +93,11 @@ def main(args=None):
     cfg = load_config(args.conf, overrides=args.override)
     serve = make_server(cfg, args.representation, H, W, args.img_size,
                         args.conf_thres, device=args.device)
+    if args.checkpoint:  # a train checkpoint's EMA weights, or a stripped one's
+        load_model_variables(serve.model, model_variables(
+            load_checkpoint(args.checkpoint, serve.device)))
     dets, n = serve(blocks)
-    dets = dets[0, : int(n[0])].cpu()
+    dets = dets[0, : int(n[0])].cpu().clone()  # a normal tensor, writable here
     if len(dets):
         dets[:, :4] = scale_coords_back(dets[:, :4], args.img_size, H, W)
     print(f"{len(dets)} detections")

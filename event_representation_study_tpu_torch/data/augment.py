@@ -1,7 +1,10 @@
 """Strong-augmentation planning on the host, in NumPy (a copy of the parts
-of the JAX package's ``data/augment.py`` that plan the image-space recipe):
-mosaic routing, random_affine matrices, flips and mixup, with the label
-math done here and the pixel work left to ``ops/warp.py``.
+of the JAX package's ``data/augment.py`` that plan the recipe): mosaic
+routing, random_affine matrices, flips and mixup, with the label math done
+here and the pixel work left to ``ops/warp.py`` or
+``reps/event_mosaic.py``; and the event-space affine + flip of the Gen1
+recipe without mosaic (:func:`plan_event_affine`,
+:func:`apply_event_affine`), which moves the events themselves on the host.
 
 The same ``np.random.Generator`` state gives the same plan and labels, bit
 for bit, as the JAX package's planner.
@@ -13,6 +16,8 @@ import random
 from typing import Optional, Sequence
 
 import numpy as np
+
+from ..ops.image import letterbox_geometry
 
 
 def get_transform_matrix(img_shape, new_shape, degrees, scale, shear, translate,
@@ -107,6 +112,80 @@ def _flip_compose(inv: np.ndarray, labels: np.ndarray, s: int,
             y1, y2 = labels[:, 2].copy(), labels[:, 4].copy()
             labels[:, 2], labels[:, 4] = s - y2, s - y1
     return inv, labels
+
+
+def plan_event_affine(
+    labels_list: Sequence[np.ndarray],  # per-sample (n, 5) abs xyxy, s-frame
+    img_size: int,
+    hyp: dict,
+    rng: np.random.Generator,
+    label_cap: int,
+):
+    """Affine+flip plan for EVENT-SPACE execution — the fast path for the
+    reference's actual Gen1 recipe (random_affine + flips, no mosaic,
+    gen1_2yolo.py:365-390). Events are points, so the image warp's point map
+    applies directly to their coordinates: a point at position c lands at
+    ``P c`` with ``P = F @ M`` (M the random affine, F the flip involution).
+
+    Returns (point_maps (B, 3, 3) in the letterboxed frame, labels
+    (B, cap, 5), nl (B,)). Label math is identical to the image path."""
+    B = len(labels_list)
+    s = img_size
+    py_rng = random.Random(int(rng.integers(2**31)))
+    maps = np.zeros((B, 3, 3), np.float32)
+    labels = np.zeros((B, label_cap, 5), np.float32)
+    nl = np.zeros((B,), np.int32)
+    for i in range(B):
+        M, sc = get_transform_matrix(
+            (s, s), (s, s), hyp.get("degrees", 0.0), hyp.get("scale", 0.0),
+            hyp.get("shear", 0.0), hyp.get("translate", 0.0), py_rng,
+        )
+        lab = transform_labels(labels_list[i].copy(), M, sc, s, s)
+        lab[:, [1, 3]] = lab[:, [1, 3]].clip(0, s - 1e-3)
+        lab[:, [2, 4]] = lab[:, [2, 4]].clip(0, s - 1e-3)
+        P = M.copy()
+        do_lr = py_rng.random() < hyp.get("fliplr", 0.0)
+        do_ud = py_rng.random() < hyp.get("flipud", 0.0)
+        if do_lr:
+            F = np.array([[-1.0, 0, s - 1], [0, 1.0, 0], [0, 0, 1.0]])
+            P = F @ P
+            if len(lab):
+                x1, x2 = lab[:, 1].copy(), lab[:, 3].copy()
+                lab[:, 1], lab[:, 3] = s - x2, s - x1
+        if do_ud:
+            F = np.array([[1.0, 0, 0], [0, -1.0, s - 1], [0, 0, 1.0]])
+            P = F @ P
+            if len(lab):
+                y1, y2 = lab[:, 2].copy(), lab[:, 4].copy()
+                lab[:, 2], lab[:, 4] = s - y2, s - y1
+        maps[i] = P.astype(np.float32)
+        n = min(len(lab), label_cap)
+        labels[i, :n] = lab[:n]
+        nl[i] = n
+    return maps, labels, nl
+
+
+def apply_event_affine(
+    x: np.ndarray, y: np.ndarray, n: int,
+    P: np.ndarray,  # (3, 3) point map in the letterboxed img_size frame
+    sensor_h: int, sensor_w: int, img_size: int,
+):
+    """Move the first ``n`` events through the letterbox-frame point map and
+    back to sensor coordinates; events leaving the frame are dropped
+    (compacted to the front). Returns (x', y', keep mask)."""
+    r, _, (dw, dh) = letterbox_geometry(sensor_h, sensor_w, img_size)
+    u = x[:n].astype(np.float64) * r + dw
+    v = y[:n].astype(np.float64) * r + dh
+    u2 = P[0, 0] * u + P[0, 1] * v + P[0, 2]
+    v2 = P[1, 0] * u + P[1, 1] * v + P[1, 2]
+    xs = (u2 - dw) / r
+    ys = (v2 - dh) / r
+    keep = (xs >= 0) & (xs <= sensor_w - 1) & (ys >= 0) & (ys <= sensor_h - 1)
+    return (
+        np.round(xs[keep]).astype(x.dtype),
+        np.round(ys[keep]).astype(y.dtype),
+        keep,
+    )
 
 
 def plan_augment_batch(

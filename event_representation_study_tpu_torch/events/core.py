@@ -38,8 +38,10 @@ class EventBlock:
         return EventBlock(*(a.to(torch.int32) for a in leaves))
 
     def to(self, device) -> "EventBlock":
+        """The block on ``device``; NumPy leaves (a loader's wire blocks)
+        become tensors of the same dtype."""
         return EventBlock(
-            *(a.to(device) for a in (self.x, self.y, self.t, self.p, self.num))
+            *(torch.as_tensor(a).to(device) for a in (self.x, self.y, self.t, self.p, self.num))
         )
 
 

@@ -2,7 +2,7 @@
 
 obj*cls scoring, multi-label expansion (every (anchor, class) with score >
 ``conf_thres`` is a candidate), the class-offset trick so IoU never crosses
-classes, greedy suppression at IoU > ``IOU_THRES``, at most ``MAX_DET``
+classes, greedy suppression at IoU > ``iou_thres``, at most ``MAX_DET``
 detections. A static top-``PRE_NMS_TOPK`` candidate set feeds a masked
 greedy loop, all on the device with no host round trip.
 
@@ -24,6 +24,7 @@ PRE_NMS_TOPK = 2048
 def non_max_suppression(
     prediction: torch.Tensor,  # (B, A, 5 + nc) [cx cy w h obj cls...]
     conf_thres: float = 0.03,
+    iou_thres: float = IOU_THRES,
 ):
     B, A, _ = prediction.shape
     nc = prediction.shape[-1] - 5
@@ -55,7 +56,7 @@ def non_max_suppression(
         ok = s[bidx, pick] > 0
         sel_idx[:, i] = torch.where(ok, pick, -1)
         sel_n += ok.to(torch.int32)
-        suppress = iou[bidx, pick] > IOU_THRES
+        suppress = iou[bidx, pick] > iou_thres
         alive = alive & ~suppress & (ar[None] != pick[:, None]) & ok[:, None]
 
     safe = sel_idx.clamp(min=0)

@@ -1,12 +1,18 @@
 """Training and eval steps (the JAX package's ``parallel/train_step.py``,
 plain mode, one device).
 
-One step: raw padded events -> ERGO-12 (kernel K1) -> letterbox -> strong
-augmentation in image space (mosaic / affine / flip / mixup, planned on the
-host by ``data/augment.py::plan_augment_batch``; the separable executor
-rolls rows on kernel K3) -> /255 -> detector in train mode -> ATSS/TAL
-assignment -> VFL + GIoU + DFL loss -> backward -> 3-group SGD (with
-accumulation) -> EMA.
+One step: raw padded events -> the augmented model input -> /255 ->
+detector in train mode -> ATSS/TAL assignment -> VFL + GIoU + DFL loss ->
+backward -> 3-group SGD (with accumulation) -> EMA. The strong augmentation
+(mosaic / affine / flip / mixup) is planned on the host
+(``data/augment.py::plan_augment_batch``) and runs on the device in one of
+two executors:
+- ``aug_mode="image"``: ERGO-12 (kernel K1) -> letterbox -> the image warp
+  (``ops/warp.py``; the separable executor rolls rows on kernel K3);
+- ``aug_mode="event"``: ``reps/event_mosaic.py`` moves the events and builds
+  the augmented representation in one K1 launch.
+A batch without a plan (no strong aug, or the loader's event-space affine)
+takes ERGO-12 -> letterbox.
 
 The JAX step is a pure function of (params, batch_stats, opt_state, ema);
 here :class:`TrainState` carries the ``nn.Module`` (parameters and BatchNorm
@@ -29,6 +35,7 @@ from ..models.yolo import init_weights_
 from ..ops.image import letterbox_image
 from ..ops.warp import AugPlan, compose_warp, compose_warp_separable
 from ..reps.dispatch import batched_representation
+from ..reps.event_mosaic import mosaic_event_rep, supports_event_mosaic
 from ..train.ema import EMAState, ema_init, ema_update
 from ..train.losses import LossConfig, detection_loss
 
@@ -77,13 +84,14 @@ def _unported(mode: str, aug_mode: str, representation: Optional[str]) -> None:
         raise NotImplementedError(f"mode={mode!r} is not ported (ROADMAP M14)")
     if mode != "plain":
         raise ValueError(f"unknown mode {mode!r}")
-    if aug_mode == "event":
-        raise NotImplementedError("aug_mode='event' (event-space mosaic) is not ported "
-                                  "(ROADMAP M13)")
-    if aug_mode != "image":
+    if aug_mode not in ("image", "event"):
         raise ValueError(f"unknown aug_mode {aug_mode!r}")
     if representation == "LearnedRepresentation":
         raise NotImplementedError("LearnedRepresentation is not ported (ROADMAP M14)")
+    if aug_mode == "event" and not (representation and supports_event_mosaic(representation)):
+        raise ValueError(
+            f"aug_mode='event' needs an MDES/ERGO-12/histogram-family representation, "
+            f"got {representation!r}")
 
 
 def make_train_step(
@@ -122,6 +130,9 @@ def make_train_step(
             img = batch.images
             if batch.aug is not None:
                 img = warp(img, batch.aug, img_size)[:n_out] / 255.0
+        elif batch.aug is not None and aug_mode == "event":
+            img = mosaic_event_rep(batch.events, batch.aug, representation, (H, W),
+                                   img_size)[:n_out] / 255.0
         else:
             img = letterbox_image(rep_fn(batch.events), img_size)
             if batch.aug is not None:

@@ -1,0 +1,237 @@
+"""Training engine (the JAX package's ``train/engine.py::Trainer``, plain
+mode on one device; the equivalent of ev-YOLOv6/yolov6/core/engine.py).
+
+Per epoch: the loader's batches go through the train step (events ->
+augmented representation -> forward -> assign -> loss -> backward -> SGD ->
+EMA, all on the device), loss parts are logged every ``log_interval`` steps,
+and the reference's eval cadence applies: every epoch for the first
+``eval_interval_first`` epochs, then every ``eval_interval``-th and the last
+(engine.py:165-195). Evaluation runs on the EMA weights and writes the
+``last_ckpt`` and, on a better AP, the ``best_ckpt`` (engine.py:272-318).
+"""
+from __future__ import annotations
+
+import pathlib
+import time
+from typing import Dict, Optional
+
+import torch
+
+from .. import resolve_device
+from ..data.gen1 import Gen1H5
+from ..data.loader import EventBatchLoader
+from ..models import build_model
+from ..ops.warp import separable_hyp_eligible
+from ..parallel.train_step import init_train_state, make_train_step
+from ..reps.ergo12 import N_CHANNELS
+from ..reps.event_mosaic import supports_event_mosaic
+from ..utils.logging import get_logger
+from ..utils.observability import MultiWriter
+from .checkpoint import save_checkpoint
+from .evaler import Evaler
+from .losses import LossConfig
+from .optim import SolverConfig, accumulation_steps, build_optimizer, with_accumulation
+
+LOGGER = get_logger("engine")
+
+
+def _unported(data_type: str, representation: Optional[str], fuse_ab: bool, distill: bool,
+              quant_calib: bool, steps_per_dispatch: int, ema_cadence: str,
+              plot_images: bool) -> None:
+    if distill and fuse_ab:
+        # engine.py:78-80: "Distill models should turn off the fuse_ab"
+        raise ValueError("distill and fuse_ab are mutually exclusive")
+    if data_type == "images":
+        raise NotImplementedError("image-folder datasets are not ported (ROADMAP M19)")
+    if fuse_ab or distill:
+        raise NotImplementedError("fuse_ab and distill training are not ported (ROADMAP M14)")
+    if quant_calib:
+        raise NotImplementedError("PTQ calibration is not ported (ROADMAP M14)")
+    if steps_per_dispatch > 1 or ema_cadence != "step":
+        raise NotImplementedError("multi-step dispatch is not ported (ROADMAP M7)")
+    if representation == "LearnedRepresentation":
+        raise NotImplementedError("LearnedRepresentation is not ported (ROADMAP M14)")
+    if plot_images:
+        raise NotImplementedError("train/val plots are not ported (ROADMAP M19, utils/viz)")
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: Dict,
+        data_root,
+        batch_size: int = 32,
+        epochs: int = 100,
+        img_size: int = 640,
+        output_dir: str = "runs/train/exp",
+        eval_interval: int = 10,
+        eval_interval_first: int = 20,
+        num_events: Optional[int] = None,
+        seed: int = 0,
+        augment: bool = False,
+        stop_aug_last_n_epoch: int = 15,
+        nominal_batch_size: int = 64,
+        plot_images: bool = False,
+        partner_pool: int = 0,
+        steps_per_dispatch: int = 1,
+        fuse_ab: bool = False,
+        distill: bool = False,
+        quant_calib: bool = False,
+        aug_mode: str = "auto",
+        ema_cadence: str = "step",
+        eval_task: str = "val",  # "test" for --testing (engine.py:603-623)
+        device="cuda",
+    ):
+        """The JAX Trainer's arguments, plus ``device`` (``cuda`` unless the
+        caller asks for ``cpu``); without the distillation settings
+        (``distill_feat``, ``temperature``, ``teacher_ckpt``), which only
+        matter with ``distill``, and ``distill`` is not ported."""
+        data = cfg.get("data", {})
+        self.data_type = data.get("type", "gen1")
+        self.representation = data.get("representation", "OptimizedRepresentation")
+        _unported(self.data_type, self.representation, fuse_ab, distill, quant_calib,
+                  int(steps_per_dispatch), ema_cadence, plot_images)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.epochs = epochs
+        self.img_size = img_size
+        self.output_dir = pathlib.Path(output_dir)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.eval_interval = eval_interval
+        self.eval_interval_first = eval_interval_first
+        self.stop_aug_last_n_epoch = stop_aug_last_n_epoch
+
+        nc = data.get("num_classes", 2)
+        ne = num_events or data.get("num_events", 50000)
+        aug = cfg.get("data_aug", {})
+        self.train_ds = Gen1H5(data_root, task="train", num_events=ne)
+        self.val_ds = Gen1H5(data_root, task=eval_task, num_events=ne)
+        # --augment enables the full recipe (mosaic/affine/flips/mixup),
+        # planned on the host and executed on the device
+        self.train_loader = EventBatchLoader(
+            self.train_ds, batch_size, img_size=img_size, shuffle=True, seed=seed,
+            flipud=aug.get("flipud", 0.0), fliplr=aug.get("fliplr", 0.0),
+            hyp=dict(aug) if augment else None,
+            # dataset-wide mosaic/mixup partner draws (0 = in-batch)
+            partner_pool=partner_pool if augment else 0,
+        )
+        self.val_loader = EventBatchLoader(self.val_ds, batch_size, img_size=img_size,
+                                           shuffle=False, drop_last=False)
+
+        solver = cfg.get("solver", {})
+        # gradient accumulation to the nominal effective batch (engine.py:526:
+        # accumulate = max(1, round(64/batch))); the schedules count optimizer
+        # updates, so steps_per_epoch shrinks by k
+        self.accumulate = accumulation_steps(batch_size, nominal_batch_size)
+        self.solver_cfg = SolverConfig(
+            lr0=solver.get("lr0", 0.0032),
+            lrf=solver.get("lrf", 0.12),
+            momentum=solver.get("momentum", 0.843),
+            weight_decay=solver.get("weight_decay", 0.00036),
+            warmup_epochs=solver.get("warmup_epochs", 2.0),
+            warmup_momentum=solver.get("warmup_momentum", 0.5),
+            warmup_bias_lr=solver.get("warmup_bias_lr", 0.05),
+            epochs=epochs,
+            steps_per_epoch=max(len(self.train_loader) // self.accumulate, 1),
+        )
+        head = cfg["model"]["head"]
+        self.loss_cfg = LossConfig(
+            num_classes=nc,
+            strides=tuple(head.get("strides", (8, 16, 32, 64))),
+            reg_max=head.get("reg_max", 16),
+            iou_type=head.get("iou_type", "giou"),
+            warmup_epoch=head.get("atss_warmup_epoch", 4),
+        )
+        # the reference ramps accumulate 1 -> 64/bs over the warmup
+        # (engine.py:528-534); the ramp counts microsteps (batches), unlike
+        # the update-counted LR and momentum schedules
+        self.accum_warmup_steps = max(
+            round(self.solver_cfg.warmup_epochs * len(self.train_loader)), 1000)
+
+        if aug_mode == "auto":
+            aug_mode = "event" if supports_event_mosaic(self.representation) else "image"
+            LOGGER.info("aug_mode auto -> %s", aug_mode)
+        self.aug_mode = aug_mode
+        # image executor: the separable two-pass warp whenever the hyp ranges
+        # fit its static roll pad; extreme hyps keep the exact routed gather
+        warp_impl = "exact"
+        if aug_mode == "image" and augment:
+            if separable_hyp_eligible(dict(aug), img_size):
+                warp_impl = "separable"
+            LOGGER.info("image warp executor: %s", warp_impl)
+        self.warp_impl = warp_impl
+        self.train_step = make_train_step(
+            self.loss_cfg, self.representation, rep_hw=(self.train_ds.height, self.train_ds.width),
+            img_size=img_size, aug_mode=aug_mode, warp_impl=warp_impl, device=self.device,
+        )
+
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.model = build_model(cfg, num_classes=nc, num_channels=N_CHANNELS,
+                                 device=self.device, generator=generator)
+        tx = with_accumulation(build_optimizer(self.model, self.solver_cfg), self.accumulate,
+                               warmup_steps=self.accum_warmup_steps)
+        self.state = init_train_state(self.model, tx)
+        n_params = sum(p.numel() for p in self.model.parameters())
+        LOGGER.info("Model Summary: Params: %.2fM", n_params / 1e6)
+
+        self.evaler = Evaler(self.model, self.val_loader, nc, self.representation, img_size,
+                             device=self.device)
+        self.best_ap = -1.0
+        self.start_epoch = 0
+        self.writer = MultiWriter.default(
+            self.output_dir, use_wandb=bool(cfg.get("use_wandb")),
+            use_tensorboard=bool(cfg.get("use_tensorboard")),
+        )
+        self.log_interval = 200  # loss every 200 steps (engine.py:264-265)
+
+    def should_eval(self, epoch: int) -> bool:
+        return (
+            epoch <= self.eval_interval_first
+            or epoch % self.eval_interval == 0
+            or epoch == self.epochs - 1
+        )
+
+    def prepare_for_epoch(self, epoch: int):
+        """Stop strong aug (mosaic/mixup) for the last N epochs: the
+        reference rebuilds the dataloader with zeroed hyp
+        (engine.py:475-480); the loader reads the hyp per batch, so zeroing
+        it in place suffices."""
+        if (
+            epoch == self.epochs - self.stop_aug_last_n_epoch
+            and self.train_loader.hyp is not None
+        ):
+            self.train_loader.hyp["mosaic"] = 0.0
+            self.train_loader.hyp["mixup"] = 0.0
+            LOGGER.info("epoch %d: strong aug (mosaic/mixup) stopped", epoch)
+
+    def train(self):
+        for epoch in range(self.start_epoch, self.epochs):
+            self.prepare_for_epoch(epoch)
+            t0 = time.time()
+            parts = None
+            for batch, _ in self.train_loader:
+                self.state, parts = self.train_step(self.state, batch, epoch)
+                # the host-side step count: reading a device value here
+                # would wait for every step
+                if self.state.step % self.log_interval == 0:
+                    self.writer.log({k: float(v) for k, v in parts.items()}, self.state.step)
+            if parts is not None:
+                last = {k: float(v) for k, v in parts.items()}
+                LOGGER.info(
+                    "epoch %d done in %.1fs loss=%.4f (iou %.3f dfl %.3f cls %.3f)",
+                    epoch, time.time() - t0, last["loss"], last["iou"], last["dfl"],
+                    last["cls"],
+                )
+            if self.should_eval(epoch):
+                stats = self.eval_and_save(epoch)
+                LOGGER.info("epoch %d eval: %s", epoch, stats)
+
+    def eval_and_save(self, epoch: int) -> Dict[str, float]:
+        stats = self.evaler.run(self.state.ema.variables)
+        self.writer.log({f"val/{k}": v for k, v in stats.items()
+                         if isinstance(v, (int, float))}, self.state.step)
+        save_checkpoint(self.output_dir / "last_ckpt", self.state, epoch)
+        if stats.get("AP", -1) > self.best_ap:
+            self.best_ap = stats["AP"]
+            save_checkpoint(self.output_dir / "best_ckpt", self.state, epoch)
+        return stats

@@ -117,6 +117,16 @@ class FusedSGD:
         self.count += 1
         self.decay_m = mom
 
+    def state_dict(self) -> dict:
+        return {"momentum": dict(self.momentum), "count": self.count, "decay_m": self.decay_m}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        for n, m in self.momentum.items():
+            m.copy_(sd["momentum"][n])
+        self.count = int(sd["count"])
+        self.decay_m = float(sd["decay_m"])
+
 
 class MultiSteps:
     """Gradient accumulation as ``optax.MultiSteps``: the running mean of
@@ -148,6 +158,18 @@ class MultiSteps:
             torch._foreach_zero_(accs)
             self.gradient_step += 1
         self.mini_step = (self.mini_step + 1) % k
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "acc": dict(self.acc),
+                "mini_step": self.mini_step, "gradient_step": self.gradient_step}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        self.inner.load_state_dict(sd["inner"])
+        for n, a in self.acc.items():
+            a.copy_(sd["acc"][n])
+        self.mini_step = int(sd["mini_step"])
+        self.gradient_step = int(sd["gradient_step"])
 
 
 def build_optimizer(model: nn.Module, cfg: SolverConfig) -> FusedSGD:

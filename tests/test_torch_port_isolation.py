@@ -63,6 +63,30 @@ def test_train_step_defaults_to_cuda(no_cuda):
         make_train_step(LossConfig(2), "ERGO12")
 
 
+def test_trainer_defaults_to_cuda(no_cuda, tmp_path):
+    from event_representation_study_tpu_torch.train.engine import Trainer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(load_config(REPO / "configs/gen1_optimized.py"), tmp_path)
+
+
+def test_evaler_defaults_to_cuda(no_cuda, tmp_path):
+    from event_representation_study_tpu_torch.train.evaler import Evaler
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Evaler(torch.nn.Identity(), None, 2, "OptimizedRepresentation")
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+def test_cli_defaults_to_cuda(no_cuda, cli, tmp_path):
+    import importlib
+
+    main = importlib.import_module(f"event_representation_study_tpu_torch.cli.{cli}").main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--data-path", str(tmp_path)])
+
+
 class _CudaLike(torch.Tensor):
     """A CPU tensor that reports itself as a CUDA tensor."""
 
@@ -107,19 +131,28 @@ def _train_step(**kw):
     [
         (lambda tmp: batched_representation("VoxelGrid", 4, 4), "M12"),
         (lambda tmp: batched_representation("TORE", 4, 4), "M12"),
-        (lambda tmp: h5_io.load_events_from_path(tmp / "x.h5"), "M9"),
+        (lambda tmp: _trainer(tmp, fuse_ab=True), "M14"),
         (lambda tmp: _build("EfficientRep"), "M14"),
         (lambda tmp: _train_step(mode="fuseab"), "M14"),
         (lambda tmp: _train_step(mode="distill"), "M14"),
-        (lambda tmp: _train_step(aug_mode="event"), "M13"),
+        (lambda tmp: _trainer(tmp, steps_per_dispatch=2), "M7"),
         (lambda tmp: _train_step(representation="LearnedRepresentation"), "M14"),
     ],
+    # the ids "hdf5" and "train_event_aug" (both ported) keep their names for
+    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7)
     ids=["voxel_grid", "tore", "hdf5", "backbone", "train_fuseab", "train_distill",
          "train_event_aug", "train_learned_rep"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         call(tmp_path)
+
+
+def _trainer(tmp, **kw):
+    from event_representation_study_tpu_torch.train.engine import Trainer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    return Trainer(load_config(REPO / "configs/gen1_optimized.py"), tmp, device="cpu", **kw)
 
 
 def _build(backbone):

@@ -19,6 +19,7 @@ from event_representation_study_tpu_torch.events import (
     generate_fake_events,
     stack_blocks,
 )
+from event_representation_study_tpu_torch.ops.image import scale_coords_back
 from event_representation_study_tpu_torch.ops.nms import non_max_suppression
 from torch_port_helpers import SERVE, assert_close, serve_pair
 
@@ -60,7 +61,7 @@ def test_detections(served, preds):
 
 def test_serve_call_and_cli(served, tmp_path, capsys):
     """``serve(blocks)`` returns (dets, n) on the CPU; the CLI serves an
-    event file, and names the unported checkpoint path."""
+    event file, with seeded weights or a checkpoint's."""
     _, _, server = served
     H, W = SERVE["H"], SERVE["W"]
     ev = generate_fake_events(1800, height=H, width=W, duration_us=200_000, seed=21)
@@ -72,5 +73,16 @@ def test_serve_call_and_cli(served, tmp_path, capsys):
     out = infer.main(["--events", str(path), "--device", "cpu", "--img-size",
                       str(SERVE["IMG"]), "--conf-thres", str(SERVE["CONF"]), *small])
     assert f"{len(out)} detections" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="M10"):
-        infer.main(["--events", str(path), "--device", "cpu", "--checkpoint", "x"])
+    # a stripped checkpoint of the served weights: the CLI serves what the
+    # server does, un-letterboxed to the sensor frame
+    assert (int(ev["y"].max()) + 1, int(ev["x"].max()) + 1) == (H, W)
+    ckpt = tmp_path / "deploy"
+    torch.save({"variables": {k: v for k, v in server.model.state_dict().items()
+                              if v.is_floating_point()}}, ckpt)
+    got = infer.main(["--events", str(path), "--device", "cpu", "--img-size", str(SERVE["IMG"]),
+                      "--conf-thres", str(SERVE["CONF"]), "--num-events", str(SERVE["CAP"]),
+                      "--checkpoint", str(ckpt), *small])
+    want = dets[0, : int(n[0])].clone()
+    want[:, :4] = scale_coords_back(want[:, :4], SERVE["IMG"], H, W)
+    assert_close("CLI with the served checkpoint", got, want.numpy(), atol=0)
+    assert len(got) > 0
