@@ -13,7 +13,8 @@ Phases, one printed line each:
    its bound, the plain version's and ``index_add_`` + ``scatter_reduce_``'s.
    kernel_hard_shapes: K1/K2 on shapes the serve path does not give them (a
    hot pixel, a tile spanning many chunks, an empty row, N % 4 != 0, an odd
-   S, the widest and narrowest column counts, B=1, the event mosaic's
+   S, the widest (Ks=32, Km=16) and narrowest column counts, the event
+   stack's Km=12, the time surface's 2*H*W segments, B=1, the event mosaic's
    200,000-event rows), exactly equal to the plain version, with their times.
 5. serve: the full-width ``configs/gen1_optimized.py`` detector serves
    requests of 8 windows through ``make_server``; the kernel launch counters
@@ -53,6 +54,21 @@ Phases, one printed line each:
    Trainer's AP. K1 runs exactly once a step and once an eval batch, K3
    never. Prints the loader's host ms per batch, step ms, the eval speed
    slots, checkpoint seconds and bytes (``trainer_host_ms``).
+13. representations: every name of ``batched_representation`` (voxel grid,
+   MDES, ERGO-12, event stack, histogram, TORE, time surface) on 8 windows
+   of 50,000 events at 240x304 on the card, against the same call on the
+   CPU (the plain K1/K2 version), timed; the launch counters are zeroed
+   before each call and read after (K2 once for histogram and voxel grid,
+   K1 once for ERGO-12, event stack and time surface, none for TORE). K1
+   at the event-stack and time-surface shapes and K2 at the histogram and
+   voxel-grid shapes are held against their plain versions and timed
+   (``kernel_K1_event_stack`` ... ``kernel_K2_voxel_grid``).
+14. gwd: ``cli/gwd.py`` ranks ERGO-12 and the voxel grid on a synthetic
+   Gen1 validation split (8 windows of up to 50,000 events), by the host
+   loop and by ``--batched``, which must agree; the time of a sample is
+   split into representation, quadrant compaction and kernel sums
+   (``gwd_stages_s``). ``otmi_batched`` on the card against the CPU, and a
+   matching voxel grid against a scrambled one (``gwd_checks``).
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -248,7 +264,9 @@ HARD_SHAPES = {
     "n_unaligned": (B, N + 1, S, 18, 3, "uniform"),  # the 4-byte copy path
     # odd S: rows after the first start their output tiles off a 16-byte boundary
     "s_unaligned": (B, N, S - 1, 18, 3, "uniform"),
-    "ks32_km8": (2, N, S, 32, 8, "uniform"),
+    "ks32_km16": (2, N, S, 32, 16, "uniform"),  # the compiled maximum
+    "ks1_km12": (B, N, S, 1, 12, "uniform"),  # the event stack
+    "time_surface_2hw": (B, N, 2 * S, 1, 6, "uniform"),  # polarity x pixels
     "ks1_km0": (2, N, S, 1, 0, "uniform"),
     "b1": (1, N, S, 18, 3, "uniform"),
     "event_mosaic": (B, 4 * N, S, 18, 3, "uniform"),  # 4 windows' events per row
@@ -1012,6 +1030,237 @@ def trainer_phase(dev):
     return k1_run1 + k1_run2 + k1_eval
 
 
+REP_NAMES = ("VoxelGrid", "MixedDensityEventStack", "OptimizedRepresentation", "EventStack",
+             "EventHistogram", "TORE", "TimeSurface")
+# card vs CPU (x255 scale), (rtol, atol): exact where the work is counts and
+# maxes; the float32 exp, log and divisions after the kernel may round one ulp
+# apart on the two devices, and near 0 an ulp of log(151) is 1.2e-4 here
+REP_TOLERANCE = {"VoxelGrid": (1e-5, 1e-4), "MixedDensityEventStack": (0.0, 2e-4 * 255),
+                 "OptimizedRepresentation": (0.0, 2e-4 * 255), "EventStack": (0.0, 0.0),
+                 "EventHistogram": (0.0, 0.0), "TORE": (1e-6, 1e-3), "TimeSurface": (1e-5, 1e-4)}
+# the kernel shapes of the representation library held by check_kernel
+REP_KERNEL_SHAPES = {"EventStack": "kernel_K1_event_stack", "TimeSurface": "kernel_K1_time_surface",
+                     "EventHistogram": "kernel_K2_histogram", "VoxelGrid": "kernel_K2_voxel_grid"}
+
+
+def capture_topk_slots(fn):
+    """Run ``fn`` and return its result with the (segments, k) slots that
+    TORE's segmented top-k produced."""
+    from event_representation_study_tpu_torch.ops import scatter
+
+    seen = []
+    real = scatter.segment_topk_recent_values
+
+    def topk(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    scatter.segment_topk_recent_values = topk
+    try:
+        out = fn()
+    finally:
+        scatter.segment_topk_recent_values = real
+    return out, seen[0]
+
+
+def representations_phase(dev, flush):
+    """Every representation through ``batched_representation`` on 8 Gen1
+    windows of 50,000 events, card vs CPU, timed, with the launches of each
+    call; K1/K2 at the new shapes against their plain versions. Returns
+    (K1/K2 launches by name, the check_kernel entries by shape)."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+
+    blocks = fake_batch(500)
+    blocks_d = blocks.to(dev)
+    rows, launches, kernel_args = {}, {}, {}
+    for name in REP_NAMES:
+        fn = batched_representation(name, H, W)
+        fn(blocks_d)  # warm-up
+        torch.cuda.synchronize()
+        fs.reset_launches()
+        if name == "TORE":
+            got, slots = capture_topk_slots(lambda: fn(blocks_d))
+        elif name in REP_KERNEL_SHAPES:
+            got, _, kernel_args[name] = capture_kernel_inputs(lambda: fn(blocks_d))
+        else:
+            got = fn(blocks_d)
+        torch.cuda.synchronize()
+        launches[name] = dict(fs.LAUNCHES)
+        if name == "TORE":
+            want, want_slots = capture_topk_slots(lambda: fn(blocks))
+        else:
+            want = fn(blocks)
+        got = got.cpu()
+        err = (got - want).abs().max().item()
+        rtol, atol = REP_TOLERANCE[name]
+        ok = torch.allclose(got, want, rtol=rtol, atol=atol) if rtol or atol else torch.equal(got, want)
+        if name == "TORE":
+            ok = ok and torch.equal(slots.cpu(), want_slots)
+        times = []
+        for _ in range(10):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(blocks_d)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        rows[name] = {"shape": list(got.shape), "launches": launches[name],
+                      "max_abs_err_vs_cpu": err, "rtol_atol": [rtol, atol], "agrees": ok,
+                      "median_ms": statistics.median(times), "ms_runs": times,
+                      "finite": bool(torch.isfinite(got).all())}
+        require(ok and rows[name]["finite"], f"{name} card vs CPU: {rows[name]}")
+        expect = {"EventHistogram": (0, 1), "VoxelGrid": (0, 1), "TORE": (0, 0)}.get(name, (1, 0))
+        require((launches[name][fs.K1], launches[name][fs.K2]) == expect,
+                f"{name}: launches {launches[name]}, expected K1/K2 {expect}")
+        del got, want
+    say("representations", windows=B, events_per_window=N, sensor=[H, W], reps=rows,
+        note="x255 scale; rtol_atol [0, 0] is exact; TORE's top-k slots (its sample "
+             "times) are compared exactly too", tf32=tf32_state())
+    entries = {}
+    for name, label in REP_KERNEL_SHAPES.items():
+        args = kernel_args[name]
+        entries[name] = check_kernel(label, args, [0, 1] if name == "EventHistogram" else [], flush)
+        entries[name]["share_of_representation"] = entries[name]["ms"] / rows[name]["median_ms"]
+    del blocks_d, kernel_args
+    torch.cuda.empty_cache()
+    return launches, entries
+
+
+GWD_WINDOWS = 8
+
+
+class StageTimer:
+    """Wraps module functions so that each call's host time, synchronised
+    with the card before and after, adds to a named bucket."""
+
+    def __init__(self):
+        self.seconds, self.calls, self._restore = {}, {}, []
+
+    def timed(self, bucket: str, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.seconds[bucket] = self.seconds.get(bucket, 0.0) + time.perf_counter() - t
+            self.calls[bucket] = self.calls.get(bucket, 0) + 1
+            return out
+
+        return run
+
+    def wrap(self, module, attr: str, bucket: str, factory: bool = False):
+        """Time ``module.attr``, or with ``factory`` the functions it returns."""
+        real = getattr(module, attr)
+        setattr(module, attr, (lambda *a, **k: self.timed(bucket, real(*a, **k))) if factory
+                else self.timed(bucket, real))
+        self._restore.append((module, attr, real))
+
+    def restore(self):
+        for module, attr, real in reversed(self._restore):
+            setattr(module, attr, real)
+        self._restore = []
+
+
+def gwd_phase(dev):
+    """``cli/gwd.py`` for ERGO-12 and the voxel grid on a synthetic Gen1
+    validation split, host loop and --batched, with the stages of each
+    timed; ``otmi_batched`` card vs CPU; the protocol's sense on the card.
+    Returns the K1/K2 launches of the --batched runs."""
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import gwd
+    from event_representation_study_tpu_torch.data.gen1 import Gen1H5, write_gen1_fixture
+    from event_representation_study_tpu_torch.events import (
+        from_structured, generate_fake_events, stack_blocks)
+    from event_representation_study_tpu_torch.metrics import chosen_indexes
+    from event_representation_study_tpu_torch.metrics import otmi as otmi_mod
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.reps import dispatch
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+
+    runs, launches = {}, {fs.K1: 0, fs.K2: 0}
+    real_extract = chosen_indexes.extract_indexes
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        write_gen1_fixture(root / "validation.h5", num_files=1, boxes_per_file=GWD_WINDOWS,
+                           events_per_file=400_000, seed=9)
+        fixture_s = time.perf_counter() - t0
+        ds = Gen1H5(root, "val", num_events=N)
+        sizes = [ds[i].num_events for i in range(GWD_WINDOWS)]
+        ds.h5.close()
+        chosen_indexes.extract_indexes = lambda name: list(range(GWD_WINDOWS))
+        try:
+            for name in ("OptimizedRepresentation", "VoxelGrid"):
+                for mode in ("host", "batched"):
+                    timer = StageTimer()
+                    if mode == "host":
+                        timer.wrap(dispatch, "get_item_transform", "representation")
+                        timer.wrap(otmi_mod, "otmi", "otmi")
+                    else:
+                        timer.wrap(dispatch, "batched_representation", "representation",
+                                   factory=True)
+                        timer.wrap(otmi_mod, "otmi_batched", "otmi")
+                    timer.wrap(otmi_mod, "sampled_kernel_cost", "kernel_sums")
+                    args = ["--data-path", tmp, "--representation", name, "--num-events", str(N),
+                            "--img-size", str(H), "--device", "cuda"]
+                    fs.reset_launches()
+                    t0 = time.perf_counter()
+                    try:
+                        mean = gwd.main(args + (["--batched"] if mode == "batched" else []))
+                    finally:
+                        timer.restore()
+                    wall = time.perf_counter() - t0
+                    if mode == "batched":
+                        for k in launches:
+                            launches[k] += fs.LAUNCHES[k]
+                    stages = dict(timer.seconds)
+                    stages["quadrant_compaction"] = stages["otmi"] - stages["kernel_sums"]
+                    stages["data_and_host"] = wall - stages["otmi"] - stages["representation"]
+                    runs[f"{name}.{mode}"] = {"mean_cp": mean, "wall_s": wall,
+                                              "s_per_sample": wall / GWD_WINDOWS,
+                                              "stages_s": stages, "calls": dict(timer.calls),
+                                              "launches": dict(fs.LAUNCHES)}
+        finally:
+            chosen_indexes.extract_indexes = real_extract
+    agree = {name: abs(runs[f"{name}.batched"]["mean_cp"] / runs[f"{name}.host"]["mean_cp"] - 1)
+             for name in ("OptimizedRepresentation", "VoxelGrid")}
+    say("gwd", windows=GWD_WINDOWS, events_per_window=sizes, img_size=H, fixture_s=fixture_s,
+        runs=runs, rel_diff_batched_vs_host=agree, tolerance="rtol 3e-4", tf32=tf32_state())
+    require(all(math.isfinite(r["mean_cp"]) for r in runs.values()), f"C_p finite: {runs}")
+    require(all(v <= 3e-4 for v in agree.values()), f"--batched vs host loop: {agree}")
+    require(runs["OptimizedRepresentation.batched"]["launches"][fs.K1] == 1
+            and runs["VoxelGrid.batched"]["launches"][fs.K2] == 1, f"gwd launches {runs}")
+
+    # otmi_batched on the card against the CPU: 2 windows of 8,192 events
+    small = fake_batch(900, n_windows=2, n_events=8192)
+    reps = batched_representation("VoxelGrid", H, W)(small)
+    ev = torch.stack([small.x, small.y, small.t, small.p], -1).to(torch.float32)
+    mask = small.mask.to(torch.float32)
+    want = otmi_mod.otmi_batched(ev, mask, reps, H, W, rep_size=H)
+    got = otmi_mod.otmi_batched(ev.to(dev), mask.to(dev), reps.to(dev), H, W, rep_size=H).cpu()
+    otmi_err = ((got - want).abs() / want.abs()).max().item()
+
+    # the protocol's sense (tests/test_gw.py:86-104): a matching voxel grid
+    # scores below a scrambled one
+    h, w = 120, 152
+    e = generate_fake_events(6000, height=h, width=w, seed=11)
+    block = stack_blocks([from_structured(e, 8192)]).to(dev)
+    rep = batched_representation("VoxelGrid", h, w)(block)[0].cpu().numpy()
+    scrambled = np.random.default_rng(0).permutation(rep.reshape(-1, 12)).reshape(rep.shape)
+    events = np.stack([e["x"], e["y"], e["t"], e["p"]], -1).astype(np.float64)
+    c_match = otmi_mod.otmi(events, rep, h, w, rep_size=h, capacity=4096, device=dev)
+    c_scram = otmi_mod.otmi(events, scrambled, h, w, rep_size=h, capacity=4096, device=dev)
+    say("gwd_checks", otmi_batched_card=got.tolist(), otmi_batched_cpu=want.tolist(),
+        max_rel_err=otmi_err, tolerance="rtol 2e-4", c_match=c_match, c_scrambled=c_scram)
+    require(otmi_err <= 2e-4, f"otmi_batched card vs CPU: {otmi_err}")
+    require(math.isfinite(c_match) and c_match < c_scram,
+            f"matching voxel grid {c_match} vs scrambled {c_scram}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -1171,12 +1420,33 @@ def main() -> int:
     # 11-12. event-space augmentation, and training through the CLIs
     mosaic_launches = event_mosaic_phase(dev)
     trainer_launches = trainer_phase(dev)
+    # 13-14. the representation library and the GWD ranking
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    rep_launches, rep_kernels = representations_phase(dev, flush)
+    del flush
+    gwd_launches = gwd_phase(dev)
 
-    k1["launches"] = launches[fs.K1] + train_launches[fs.K1] + mosaic_launches + trainer_launches
+    rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
+    k1["launches"] = (launches[fs.K1] + train_launches[fs.K1] + mosaic_launches + trainer_launches
+                      + rep_k1 + gwd_launches[fs.K1])
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
-                              "event_mosaic": mosaic_launches, "trainer": trainer_launches}
-    k2["launches"] = launches_sum_only[fs.K2]
-    k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2]}
+                              "event_mosaic": mosaic_launches, "trainer": trainer_launches,
+                              "representations": rep_k1, "gwd": gwd_launches[fs.K1]}
+    k2["launches"] = launches_sum_only[fs.K2] + rep_k2 + gwd_launches[fs.K2]
+    k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
+                              "representations": rep_k2, "gwd": gwd_launches[fs.K2]}
+    # the main figures stay those of the serve shape; the new shapes beside them
+    for entry, shapes in ((k1, {"event_stack": "EventStack", "time_surface": "TimeSurface"}),
+                          (k2, {"histogram": "EventHistogram", "voxel_grid": "VoxelGrid"})):
+        entry["by_shape"] = {"ergo12_serve" if entry is k1 else "mdes_sum_only": {
+            k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "max_abs_err")}}
+        for label, name in shapes.items():
+            entry["by_shape"][label] = {
+                **{k: rep_kernels[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms", "max_abs_err",
+                                                     "share_of_representation")},
+                "launches": rep_launches[name][entry["name"]]}
+        entry["max_abs_err"] = max(v["max_abs_err"] for v in entry["by_shape"].values())
     k3["launches"] = train_launches["roll_rows"]
     k3["launches_by_path"] = {"train": train_launches["roll_rows"]}
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)

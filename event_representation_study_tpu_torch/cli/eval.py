@@ -51,7 +51,7 @@ def main(args=None):
     from ..data.gen1 import Gen1H5
     from ..data.loader import EventBatchLoader
     from ..models import build_model
-    from ..reps.ergo12 import N_CHANNELS
+    from ..reps.dispatch import REPRESENTATION_CHANNELS
     from ..train.checkpoint import load_checkpoint, load_model_variables, model_variables
     from ..train.evaler import Evaler
     from ..utils.config import load_config
@@ -67,8 +67,8 @@ def main(args=None):
     ds = Gen1H5(args.data_path, task="test" if args.task == "test" else "val", num_events=ne)
     loader = EventBatchLoader(ds, args.batch_size, img_size=args.img_size, shuffle=False,
                               drop_last=False)
-    model = build_model(cfg, num_classes=nc, num_channels=N_CHANNELS, device=device,
-                        generator=torch.Generator(device=device).manual_seed(0))
+    model = build_model(cfg, num_classes=nc, num_channels=REPRESENTATION_CHANNELS.get(rep, 12),
+                        device=device, generator=torch.Generator(device=device).manual_seed(0))
     if args.checkpoint:
         load_model_variables(model, model_variables(load_checkpoint(args.checkpoint, device)))
 

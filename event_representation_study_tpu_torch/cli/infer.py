@@ -1,5 +1,6 @@
-"""Detection serving: events -> ERGO-12 -> letterbox -> /255 -> Detector
-(eval) -> NMS (the event-file path of the JAX package's ``cli/infer.py``).
+"""Detection serving: events -> representation (ERGO-12 by default) ->
+letterbox -> /255 -> Detector (eval) -> NMS (the event-file path of the JAX
+package's ``cli/infer.py``).
 
     python -m event_representation_study_tpu_torch.cli.infer \\
         --events f.npz --conf configs/gen1_optimized.py
@@ -20,8 +21,7 @@ from ..events.core import EventBlock
 from ..models import build_model
 from ..ops.image import letterbox_image
 from ..ops.nms import non_max_suppression
-from ..reps.dispatch import batched_representation
-from ..reps.ergo12 import N_CHANNELS
+from ..reps.dispatch import REPRESENTATION_CHANNELS, batched_representation
 
 
 class Server:
@@ -59,7 +59,8 @@ def make_server(cfg: Dict, representation: str, H: int, W: int, img_size: int,
     nc = cfg.get("data", {}).get("num_classes", 2)
     rep_fn = batched_representation(representation, H, W)
     generator = torch.Generator(device=device).manual_seed(0)
-    model = build_model(cfg, num_classes=nc, num_channels=N_CHANNELS,
+    model = build_model(cfg, num_classes=nc,
+                        num_channels=REPRESENTATION_CHANNELS.get(representation, 12),
                         device=device, generator=generator).eval()
     return Server(model, rep_fn, img_size, conf_thres, device)
 

@@ -61,8 +61,10 @@
 // which costs more than it hides. Shared memory per block is kStages * (1 +
 // ks + km) * (kChunk + 4) * 4 B of ring, (kTile * (ks + km) + 8) * 4 B of
 // outputs and 3 KB of run lists: 70 KB for ERGO-12 (ks=18, km=3) and 61 KB
-// for K2 at ks=18, 3 blocks per SM each (27 warps); 129 KB at the compiled
-// maximum ks=32, km=8 (1 block).
+// for K2 at ks=18, 3 blocks per SM each (27 warps); 154 KB at the compiled
+// maximum ks=32, km=16 (1 block). The consumers hold no per-column state in
+// registers (one (run, column) item at a time), so the widths cost shared
+// memory only.
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -82,7 +84,7 @@ constexpr int kPitch = kChunk + 4;    // floats between columns in shared memory
 // to the stack.
 constexpr int kBlocksPerSm = 3;
 constexpr int kMaxKs = 32;
-constexpr int kMaxKm = 8;
+constexpr int kMaxKm = 16;
 constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -3.4e38f;
 static_assert(kTile % 32 == 0 && kChunk % 4 == 0 && kStages >= 2,

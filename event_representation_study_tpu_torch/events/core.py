@@ -37,6 +37,17 @@ class EventBlock:
             return self
         return EventBlock(*(a.to(torch.int32) for a in leaves))
 
+    @property
+    def mask(self) -> torch.Tensor:
+        """bool (..., N): True for valid events (the first ``num`` slots)."""
+        idx = torch.arange(self.x.shape[-1], dtype=torch.int32, device=self.x.device)
+        return idx < self.num[..., None]
+
+    def index(self) -> torch.Tensor:
+        """int32 (..., N): position of each event within the block."""
+        return torch.arange(self.x.shape[-1], dtype=torch.int32,
+                            device=self.x.device).expand(self.x.shape)
+
     def to(self, device) -> "EventBlock":
         """The block on ``device``; NumPy leaves (a loader's wire blocks)
         become tensors of the same dtype."""

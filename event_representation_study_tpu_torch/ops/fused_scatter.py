@@ -27,7 +27,7 @@ from .cuda_build import load_library
 
 NEG_INF = -3.4e38
 KS_MAX = 32  # compiled limits of csrc/fused_segment_reduce.cu
-KM_MAX = 8
+KM_MAX = 16
 
 K1 = "fused_segment_reduce"  # sum + max columns
 K2 = "fused_segment_reduce_sum_only"
@@ -70,7 +70,7 @@ def _check(seg_s, vs, vm) -> None:
         if vm.dtype != torch.float32 or vm.dim() != 3 or vm.shape[::2] != (B, n):
             raise ValueError(f"vm must be float32 (B, Km, N), got {vm.dtype} {tuple(vm.shape)}")
         if vm.shape[1] > KM_MAX:
-            raise ValueError(f"Km={vm.shape[1]} above the compiled limit {KM_MAX}")
+            raise ValueError(f"Km={vm.shape[1]} above the compiled limit Km <= {KM_MAX}")
         tensors.append(vm)
     if any(t.device != vs.device for t in tensors):
         raise ValueError("seg_s, vs and vm must share one device")

@@ -23,7 +23,7 @@ from ..data.loader import EventBatchLoader
 from ..models import build_model
 from ..ops.warp import separable_hyp_eligible
 from ..parallel.train_step import init_train_state, make_train_step
-from ..reps.ergo12 import N_CHANNELS
+from ..reps.dispatch import REPRESENTATION_CHANNELS
 from ..reps.event_mosaic import supports_event_mosaic
 from ..utils.logging import get_logger
 from ..utils.observability import MultiWriter
@@ -166,7 +166,8 @@ class Trainer:
         )
 
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.model = build_model(cfg, num_classes=nc, num_channels=N_CHANNELS,
+        channels = REPRESENTATION_CHANNELS.get(self.representation, 12)  # the input follows the rep
+        self.model = build_model(cfg, num_classes=nc, num_channels=channels,
                                  device=self.device, generator=generator)
         tx = with_accumulation(build_optimizer(self.model, self.solver_cfg), self.accumulate,
                                warmup_steps=self.accum_warmup_steps)

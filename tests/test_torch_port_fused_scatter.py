@@ -86,6 +86,45 @@ def test_plain_vs_pallas_interpret(case, km):
         assert_close("maxes", got_m, want_m, atol=0)
 
 
+@pytest.mark.parametrize("km", [12, 16], ids=lambda k: f"km{k}")
+def test_wide_max_columns(km):
+    """Km = 12 (the event stack) and 16 (the compiled limit): the plain
+    version against the Pallas kernel in interpret mode and against
+    ``ops/scatter.py::segment_max`` column by column, exactly."""
+    from event_representation_study_tpu_torch.ops import scatter
+
+    rng = np.random.default_rng(km)
+    seg = _seg("invalid", rng)
+    a = rng.normal(size=seg.shape).astype(np.float32)
+
+    def columns(xp):
+        stack = (lambda c: jnp.stack(c, axis=1)) if xp is jnp else (lambda c: torch.stack(c, dim=1))
+
+        def columns_fn(pos_s, a_s):
+            pos_f = pos_s.astype(jnp.float32) if xp is jnp else pos_s.to(torch.float32)
+            # column k keeps the events past position 32 k, as the stack's suffixes
+            vm = [xp.where(pos_s >= 32 * k, a_s + pos_f / 1024, NEG_INF) for k in range(km)]
+            return stack([xp.ones_like(a_s)]), stack(vm)
+
+        return columns_fn
+
+    want_s, want_m = jax_fused_segment_reduce(jnp.asarray(seg), (jnp.asarray(a),), columns(jnp), S,
+                                              interpret=True)
+    got_s, got_m = fused_segment_reduce(torch.from_numpy(seg), (torch.from_numpy(a),),
+                                        columns(torch), S)
+    assert got_m.shape == (B, S, km)
+    assert_close(f"km={km} maxes vs Pallas interpret", got_m, want_m, atol=0)
+    assert_close(f"km={km} counts vs Pallas interpret", got_s, want_s, atol=0)
+    pos = torch.arange(N, dtype=torch.float32)
+    for b in range(B):
+        for k in range(km):
+            valid = (torch.from_numpy(seg[b]) < S) & (pos >= 32 * k)
+            oracle = scatter.segment_max(torch.from_numpy(a[b]) + pos / 1024,
+                                         torch.from_numpy(seg[b]), valid, S, zero_empty=False)
+            assert torch.equal(torch.where(got_m[b, :, k] <= NEG_INF / 2, -torch.inf,
+                                           got_m[b, :, k]), oracle), (b, k)
+
+
 def test_sort_glue_offsets():
     """``sort_columns`` orders ids and events as the JAX package's two-key
     ``lax.sort`` on (segment, position) does (``pallas_scatter.py:173``):
@@ -120,7 +159,7 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="Ks"):
         fused_scatter.segment_reduce_sorted(seg_s, torch.zeros((B, 33, N)), None, S)
     with pytest.raises(ValueError, match="Km"):
-        fused_scatter.segment_reduce_sorted(seg_s, vs, torch.zeros((B, 9, N)), S)
+        fused_scatter.segment_reduce_sorted(seg_s, vs, torch.zeros((B, 17, N)), S)
     with pytest.raises(ValueError, match="seg_s"):
         fused_scatter.segment_reduce_sorted(seg_s.to(torch.int64), vs, None, S)
     with pytest.raises(ValueError, match="seg_s"):

@@ -13,10 +13,14 @@ import torch
 
 from event_representation_study_tpu_torch.events import h5_io
 from event_representation_study_tpu_torch.ops import fused_scatter, roll
-from event_representation_study_tpu_torch.reps import batched_representation
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
+# the representation library and the GWD ranking, imported in the probe too
+NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
+               "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
+               "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
+               "cli.gwd")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -36,6 +40,8 @@ def test_port_imports_no_jax():
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(report["modules"]) >= 20
+    prefix = "event_representation_study_tpu_torch."
+    assert {prefix + m for m in NEW_MODULES} <= set(report["modules"])
     bad = [m for m in report["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -129,8 +135,8 @@ def _train_step(**kw):
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda tmp: batched_representation("VoxelGrid", 4, 4), "M12"),
-        (lambda tmp: batched_representation("TORE", 4, 4), "M12"),
+        (lambda tmp: _trainer(tmp, plot_images=True), "M19"),
+        (lambda tmp: _trainer(tmp, quant_calib=True), "M14"),
         (lambda tmp: _trainer(tmp, fuse_ab=True), "M14"),
         (lambda tmp: _build("EfficientRep"), "M14"),
         (lambda tmp: _train_step(mode="fuseab"), "M14"),
@@ -139,7 +145,9 @@ def _train_step(**kw):
         (lambda tmp: _train_step(representation="LearnedRepresentation"), "M14"),
     ],
     # the ids "hdf5" and "train_event_aug" (both ported) keep their names for
-    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7)
+    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7);
+    # "voxel_grid" and "tore" (both ported) for a Trainer with train plots
+    # (M19) and one with PTQ calibration (M14)
     ids=["voxel_grid", "tore", "hdf5", "backbone", "train_fuseab", "train_distill",
          "train_event_aug", "train_learned_rep"],
 )

@@ -21,8 +21,12 @@ def assert_close(what: str, got, want, atol: float, rtol: float = 0.0) -> None:
         JAX_PLATFORMS=cpu python -m pytest tests/test_torch_port_*.py -rP | grep PARITY
     """
     got, want = np.asarray(got), np.asarray(want)
-    err = (float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
-           if got.shape == want.shape and got.size else None)
+    if got.shape == want.shape and got.size:
+        g, w = got.astype(np.float64), want.astype(np.float64)
+        with np.errstate(invalid="ignore"):  # equal infinities count as 0
+            err = float(np.abs(np.where(g == w, 0.0, g - w)).max())
+    else:
+        err = None
     test = os.environ.get("PYTEST_CURRENT_TEST", "").split(" ")[0]
     print("PARITY " + json.dumps({"test": test, "what": what, "max_abs_err": err,
                                   "rtol": rtol, "atol": atol}))
