@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import resolve_device
+
 
 def pairwise_sq_dists(X, Y):
     """Squared euclidean distances (n, d) x (m, d) -> (n, m)."""
@@ -184,12 +186,15 @@ def gaussian_kernels(Xs, Xt, h: float = 0.7):
     return Ks, Kt
 
 
-def gw_distance(Xs, Xt, h: float = 0.7, loss: str = "kl", epsilon: float = 5e-3):
+def gw_distance(Xs, Xt, h: float = 0.7, loss: str = "kl", epsilon: float = 5e-3,
+                device="cuda"):
     """Exact-path OTMI: kernels + entropic GW (OTMI.solve,
-    gromov_wasserstein.py:39-69). Arrays or tensors in; runs on the
-    tensors' device (the CPU for arrays)."""
-    Ks, Kt = gaussian_kernels(torch.as_tensor(Xs, dtype=torch.float32),
-                              torch.as_tensor(Xt, dtype=torch.float32), h)
+    gromov_wasserstein.py:39-69). Arrays or tensors in; runs on ``device``
+    (``cuda`` unless the caller passes ``"cpu"``; raises where CUDA is
+    absent)."""
+    device = resolve_device(device)
+    Ks, Kt = gaussian_kernels(torch.as_tensor(Xs, dtype=torch.float32, device=device),
+                              torch.as_tensor(Xt, dtype=torch.float32, device=device), h)
     n, m = Ks.shape[0], Kt.shape[0]
     p = torch.full((n,), 1.0 / n, device=Ks.device)
     q = torch.full((m,), 1.0 / m, device=Ks.device)

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .gw import sampled_kernel_cost
 
 
@@ -92,10 +93,16 @@ def otmi(
     h: float = 0.7,
     capacity: Optional[int] = None,
     backend: str = "tiled",  # "tiled" (sampled_kernel_cost on device) | "cpu-dense"
-    device="cpu",
+    device="cuda",
 ) -> float:
     """C_p of one sample, the protocol on the host; with ``backend="tiled"``
-    each quadrant's kernel cost runs on ``device``."""
+    each quadrant's kernel cost runs on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``; raises where CUDA is absent). ``"cpu-dense"``
+    is the reference's dense NumPy math and ignores ``device``."""
+    if backend not in ("tiled", "cpu-dense"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "tiled":
+        device = resolve_device(device)
     events = np.asarray(events, np.float64)
     quads = _quadrants(events, height, width)
     sizes = [q.shape[0] for q in quads]
@@ -136,8 +143,6 @@ def otmi(
         if backend == "cpu-dense":
             costs.append(_dense_cost_np(cloud_s, flat.astype(np.float64), h=h))
             continue
-        if backend != "tiled":
-            raise ValueError(f"unknown backend {backend!r}")
         # per-cloud capacities: the small rep cloud keeps its own bucket
         Xs, ms = _pad_cloud(cloud_s.astype(np.float32), capacity or _bucket_capacity(len(cloud_s)))
         Xt, mt = _pad_cloud(flat.astype(np.float32), capacity or _bucket_capacity(len(flat)))

@@ -3,7 +3,8 @@ and ``cli/gwd.py``) against the JAX package's on the same NumPy inputs.
 
 Tolerances: the kernel cost rtol 2e-4 against JAX and against the float64
 dense twin (float32 sums in another order and tiling); the entropic GW solver
-rtol 1e-4 at n <= 48 (5,000 float32 Sinkhorn steps each side); ``otmi`` and
+rtol 1e-4 at n <= 48 (5,000 float32 Sinkhorn steps each side), and
+``gw_distance`` with it; ``otmi`` and
 ``otmi_batched`` rtol 2e-4, as JAX holds its own pair; the CLI rtol 3e-4.
 """
 import jax.numpy as jnp
@@ -95,6 +96,17 @@ def test_entropic_gromov_wasserstein(kernels, loss):
     assert_close(f"{loss}: row marginals", T.sum(1), p, rtol=1e-5, atol=1e-7)
 
 
+@pytest.mark.parametrize("loss", ["kl", "square"])
+def test_gw_distance(loss):
+    """Kernels + entropic GW of two clouds, end to end (the shapes of the
+    ``kernels`` fixture)."""
+    Xs, Xt = _cloud(24, 3, 2), _cloud(30, 4, 3, 2.0)
+    got = gw.gw_distance(Xs, Xt, loss=loss, device="cpu")
+    assert got.device.type == "cpu"
+    assert_close(f"gw_distance {loss} vs JAX", float(got), float(jax_gw.gw_distance(Xs, Xt, loss=loss)),
+                 rtol=1e-4, atol=0)
+
+
 def test_entropic_against_exact_cg(kernels):
     """The anchor of tests/test_gw_exact.py on the port: CG-polishing the
     entropic coupling certifies its basin, at least as good as the product
@@ -155,8 +167,8 @@ def test_otmi_protocol_sense():
     events = np.stack([ev["x"], ev["y"], ev["t"], ev["p"]], axis=-1).astype(np.float64)
     rep = numpy_ref.voxel_grid_np(ev, H, W) * 255.0
     scrambled = np.random.default_rng(0).permutation(rep.reshape(-1, 12)).reshape(rep.shape)
-    c_match = otmi.otmi(events, rep, H, W, rep_size=H, capacity=4096)
-    c_scram = otmi.otmi(events, scrambled, H, W, rep_size=H, capacity=4096)
+    c_match = otmi.otmi(events, rep, H, W, rep_size=H, capacity=4096, device="cpu")
+    c_scram = otmi.otmi(events, scrambled, H, W, rep_size=H, capacity=4096, device="cpu")
     assert np.isfinite(c_match) and c_match < c_scram
 
 

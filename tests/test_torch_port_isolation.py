@@ -84,13 +84,28 @@ def test_evaler_defaults_to_cuda(no_cuda, tmp_path):
         Evaler(torch.nn.Identity(), None, 2, "OptimizedRepresentation")
 
 
-@pytest.mark.parametrize("cli", ["train", "eval"])
+@pytest.mark.parametrize("cli", ["train", "eval", "gwd"])
 def test_cli_defaults_to_cuda(no_cuda, cli, tmp_path):
     import importlib
 
     main = importlib.import_module(f"event_representation_study_tpu_torch.cli.{cli}").main
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--data-path", str(tmp_path)])
+
+
+@pytest.mark.parametrize("metric", ["otmi", "gw_distance"])
+def test_gwd_metrics_default_to_cuda(no_cuda, metric):
+    """The host-side metrics take NumPy arrays, so no tensor fixes their
+    device: they run on ``cuda`` unless the caller passes ``device="cpu"``."""
+    from event_representation_study_tpu_torch.metrics.gw import gw_distance
+    from event_representation_study_tpu_torch.metrics.otmi import otmi
+
+    cloud = np.random.default_rng(0).random((16, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if metric == "otmi":
+            otmi(cloud * 8, np.ones((8, 8, 2), np.float32), 8, 8, rep_size=8)
+        else:
+            gw_distance(cloud, cloud)
 
 
 class _CudaLike(torch.Tensor):
@@ -145,10 +160,8 @@ def _train_step(**kw):
         (lambda tmp: _train_step(representation="LearnedRepresentation"), "M14"),
     ],
     # the ids "hdf5" and "train_event_aug" (both ported) keep their names for
-    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7);
-    # "voxel_grid" and "tore" (both ported) for a Trainer with train plots
-    # (M19) and one with PTQ calibration (M14)
-    ids=["voxel_grid", "tore", "hdf5", "backbone", "train_fuseab", "train_distill",
+    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7)
+    ids=["train_plots", "train_ptq", "hdf5", "backbone", "train_fuseab", "train_distill",
          "train_event_aug", "train_learned_rep"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
