@@ -13,9 +13,11 @@ Phases, one printed line each:
    its bound, the plain version's and ``index_add_`` + ``scatter_reduce_``'s.
    kernel_hard_shapes: K1/K2 on shapes the serve path does not give them (a
    hot pixel, a tile spanning many chunks, an empty row, N % 4 != 0, an odd
-   S, the widest (Ks=32, Km=16) and narrowest column counts, the event
-   stack's Km=12, the time surface's 2*H*W segments, B=1, the event mosaic's
-   200,000-event rows), exactly equal to the plain version, with their times.
+   S, the widest column counts of one launch (Ks=32, Km=16), a table wider
+   than that (Ks=36, Km=3: two column groups, two launches) and the
+   narrowest, the event stack's Km=12, the time surface's 2*H*W segments,
+   B=1, the event mosaic's 200,000-event rows), exactly equal to the plain
+   version, with their times.
 5. serve: the full-width ``configs/gen1_optimized.py`` detector serves
    requests of 8 windows through ``make_server``; the kernel launch counters
    are zeroed before and read after, and K1 must run once per request.
@@ -69,6 +71,16 @@ Phases, one printed line each:
    split into representation, quadrant compaction and kernel sums
    (``gwd_stages_s``). ``otmi_batched`` on the card against the CPU, and a
    matching voxel grid against a scrambled one (``gwd_checks``).
+15. search: the ERGO-12 channel search (``search/optimize.py``, Gryffin) on
+   the card at the study's surrogate settings (2000 BNN steps, 1000 draws,
+   the 7 x 7 x 4 space with its constraint table), its objective the mean
+   OTMI C_p of each candidate MDES table (K1/K2) on the gwd phase's 8
+   windows; 2 channels x 6 measures instead of 12 x 100. Recommends timed
+   as fit + acquisition, measures as representation + OTMI with their
+   K1/K2 launches (ERGO-12 and the 36-column table measured last, two
+   launches for the latter); one fit's draws card vs CPU and vs the float64
+   C evaluator, that fit re-run on the CPU, its idle share from a profile,
+   ``cli/bo.py`` on the card (``search_checks``).
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -264,7 +276,8 @@ HARD_SHAPES = {
     "n_unaligned": (B, N + 1, S, 18, 3, "uniform"),  # the 4-byte copy path
     # odd S: rows after the first start their output tiles off a 16-byte boundary
     "s_unaligned": (B, N, S - 1, 18, 3, "uniform"),
-    "ks32_km16": (2, N, S, 32, 16, "uniform"),  # the compiled maximum
+    "ks32_km16": (2, N, S, 32, 16, "uniform"),  # the compiled maximum of one launch
+    "ks36_km3": (2, N, S, 36, 3, "uniform"),  # two column groups: 18 + 18 sums, 2 + 1 maxes
     "ks1_km12": (B, N, S, 1, 12, "uniform"),  # the event stack
     "time_surface_2hw": (B, N, 2 * S, 1, 6, "uniform"),  # polarity x pixels
     "ks1_km0": (2, N, S, 1, 0, "uniform"),
@@ -1261,6 +1274,259 @@ def gwd_phase(dev):
     return launches
 
 
+SEARCH_CHANNELS, SEARCH_BUDGET = 2, 6  # the study searches 12 channels x 100 measures
+# 12 variances of distinct (function, window): 36 sum columns, two K1/K2 column groups
+VARIANCE_36 = ([(w, "timestamp", "variance") for w in range(7)]
+               + [(w, "timestamp_pos", "variance") for w in range(5)])
+# One seed's fit, card vs CPU. The 2000-step fit is chaotic: on the CPU,
+# -1e-6 on one initial weight moves a draw's cat_probs by 0.87 and their mean
+# over the draws by 0.020, after 200 steps by 1.1e-6 (tests/
+# test_torch_port_search_bnn.py, the CHAOS lines). So the draws are compared
+# after FIT_CHECK_STEPS steps, before rounding has grown, and the full fit by
+# its mean over the draws, the kernel density's input.
+FIT_CHECK_STEPS, FIT_TOLERANCE, FIT_MEAN_TOLERANCE = 200, 1e-3, 0.05
+PROFILED_FIT_STEPS = 200
+MEASURE_TOLERANCE = 2e-4  # each measured MDES table, card vs the plain version on the CPU
+
+
+def union_us(intervals, lo, hi) -> float:
+    """Length of the union of (start, end) intervals clipped to [lo, hi):
+    a profiler window's device busy time."""
+    spans = sorted((max(s, lo), min(e, hi)) for s, e in intervals if e > lo and s < hi)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+def fit_profile(fit, args, kwargs):
+    """Device busy time and idle share of one surrogate fit of
+    PROFILED_FIT_STEPS steps (and the study's draws), from a torch.profiler
+    trace: busy is the union of the CUDA kernel intervals in the fit's
+    window."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("fit"):
+            fit(*args, **{**kwargs, "train_steps": PROFILED_FIT_STEPS})
+            torch.cuda.synchronize()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == cuda and e.name != "fit"]
+    lo, hi = next((e.time_range.start, e.time_range.end) for e in events
+                  if e.device_type != cuda and e.name == "fit")
+    busy = union_us(spans, lo, hi)
+    return {"train_steps": PROFILED_FIT_STEPS, "wall_ms": (hi - lo) / 1e3,
+            "device_busy_ms": busy / 1e3, "idle_share": 1.0 - busy / (hi - lo),
+            "kernels": len(spans), "kernels_per_step": len(spans) / PROFILED_FIT_STEPS}
+
+
+def search_phase(dev):
+    """The ERGO-12 channel search (``search/optimize.py``) on the card at the
+    study's surrogate settings: 2000 BNN train steps, 1000 posterior draws,
+    the 7 x 7 x 4 space with its constraint table, alternating +-1
+    strategies. The objective is the mean ``otmi_batched`` C_p of
+    ``mdes_fused_batched(fixed + [triple])`` (K1/K2) on the 8 synthetic Gen1
+    windows of 50,000 events that the gwd phase writes, at rep size 240. Cut:
+    SEARCH_CHANNELS channels x SEARCH_BUDGET measures instead of 12 x 100.
+    Each recommend is timed as fit + acquisition, each measure as
+    representation + OTMI with its K1/K2 launches; then ERGO-12 (K1 once)
+    and the 36-column table VARIANCE_36 (two launches) are measured. Checks:
+    every scored triple is allowed, the history file holds every measure;
+    every measured table agrees with the plain version on the CPU
+    (MEASURE_TOLERANCE);
+    on one fit's draws the kernel density card vs CPU (rtol 1e-5) and vs the
+    float64 C evaluator (rtol 1e-4); that fit re-run on the CPU from its
+    seed (FIT_CHECK_STEPS, FIT_TOLERANCE, FIT_MEAN_TOLERANCE); ``cli/bo.py``
+    recommends on the card from an observations file. Returns the K1/K2
+    launches of the search."""
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import bo
+    from event_representation_study_tpu_torch.data.gen1 import Gen1H5, write_gen1_fixture
+    from event_representation_study_tpu_torch.events import from_structured, stack_blocks
+    from event_representation_study_tpu_torch.metrics.otmi import otmi_batched
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.reps import fused_mdes
+    from event_representation_study_tpu_torch.reps.ergo12 import (
+        AGGREGATIONS, FUNCTIONS, WINDOW_INDEXES)
+    from event_representation_study_tpu_torch.search import (
+        bnn, db, gryffin, kernels, native, optimize)
+    from event_representation_study_tpu_torch.search.acquisition import enumerate_feasible
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        write_gen1_fixture(root / "validation.h5", num_files=1, boxes_per_file=GWD_WINDOWS,
+                           events_per_file=400_000, seed=9)
+        ds = Gen1H5(root, "val", num_events=N)
+        blocks = stack_blocks([from_structured(ds.structured_events(i), N)
+                               for i in range(GWD_WINDOWS)])
+        ds.h5.close()
+        events = torch.stack([blocks.x, blocks.y, blocks.t, blocks.p], -1).to(torch.float32)
+        blocks_d, events_d = blocks.to(dev), events.to(dev)
+        mask_d = blocks.mask.to(torch.float32).to(dev)
+        measures, calls, fits = [], [], []
+
+        def measure(triples):
+            windows, funcs, aggs = (tuple(c) for c in zip(*triples))
+            before = dict(fs.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = fused_mdes.mdes_fused_batched(blocks_d, H, W, windows, funcs, aggs)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            c_p = float(np.nanmean(otmi_batched(events_d, mask_d, rep, H, W, rep_size=H)
+                                   .cpu().numpy()))
+            otmi_s = time.perf_counter() - t1
+            # the same table by the plain version on the CPU (untimed, uncounted)
+            rep_cpu = fused_mdes.mdes_fused_batched(blocks, H, W, windows, funcs, aggs)
+            sums, maxes, _ = fused_mdes._plan(windows, funcs, aggs)
+            groups = fs.column_groups(len(sums), len(maxes))
+            measures.append({
+                "channels": len(triples), "triple": list(triples[-1]), "c_p": c_p,
+                "representation_s": t1 - t0, "otmi_s": otmi_s,
+                "shape_ok": tuple(rep.shape) == (GWD_WINDOWS, H, W, len(triples)),
+                "max_abs_err_card_vs_cpu": (rep.cpu() - rep_cpu).abs().max().item(),
+                "Ks": len(sums), "Km": len(maxes),
+                "launches": {k: fs.LAUNCHES[k] - before[k] for k in fs.LAUNCHES},
+                "expected": {fs.K1: sum(len(m) > 0 for _, m in groups),
+                             fs.K2: sum(len(m) == 0 for _, m in groups)}})
+            return c_p
+
+        def timed(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                calls.append((name, time.perf_counter() - t))
+                if name == "fit":
+                    fits.append((a, k, out))
+                return out
+            return run
+
+        real_recommend, real_fit = gryffin.Gryffin.recommend, bnn.fit_categorical_kernels
+        gryffin.Gryffin.recommend = timed("recommend", real_recommend)
+        bnn.fit_categorical_kernels = timed("fit", real_fit)
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            fixed = optimize.sequential_optimization(
+                measure, channels=SEARCH_CHANNELS, budget=SEARCH_BUDGET, seed=42,
+                verbose=False, db_path=root / "history.json", device="cuda")
+            search_s = time.perf_counter() - t0
+            measure(list(zip(WINDOW_INDEXES, FUNCTIONS, AGGREGATIONS)))  # ERGO-12 (K1 once)
+            measure(VARIANCE_36)  # two launches
+        finally:
+            gryffin.Gryffin.recommend, bnn.fit_categorical_kernels = real_recommend, real_fit
+        launches = dict(fs.LAUNCHES)
+        history = db.DatabaseHandler(root / "history.json").load()
+
+        recommends, fit_s = [], None
+        for name, s in calls:
+            if name == "fit":
+                fit_s = s
+            else:
+                recommends.append({"fit_s": fit_s, "acquisition_s": s - fit_s}
+                                  if fit_s is not None else {"random_s": s})
+                fit_s = None
+        scored = [m["triple"] for m in measures[:-2]]
+        ergo12, wide = measures[-2:]
+        say("search", channels=SEARCH_CHANNELS, budget=SEARCH_BUDGET, windows=GWD_WINDOWS,
+            events_per_window=N, rep_size=H, bnn_train_steps=bnn.TRAIN_STEPS,
+            bnn_draws=bnn.N_DRAWS, cut=f"{SEARCH_CHANNELS} channels x {SEARCH_BUDGET} "
+            "measures instead of the study's 12 x 100; synthetic Gen1 windows",
+            fixed=fixed, search_s=search_s, recommends=recommends, measures=measures[:-2],
+            ergo12=ergo12, variance_36=wide, launches=launches, tf32=tf32_state())
+        require(len(scored) == len(history) == SEARCH_CHANNELS * SEARCH_BUDGET,
+                f"{len(scored)} measures, {len(history)} in the history")
+        require(all(a in optimize.POSSIBLE_SCENARIOS[f] for _, f, a in scored),
+                f"a scored triple outside the constraint table: {scored}")
+        require(all(math.isfinite(m["c_p"]) for m in measures), "C_p finite")
+        require(all(m["shape_ok"] and m["max_abs_err_card_vs_cpu"] <= MEASURE_TOLERANCE
+                    for m in measures),
+                f"MDES tables card vs CPU: {[m['max_abs_err_card_vs_cpu'] for m in measures]}")
+        require(all(m["launches"] == m["expected"] for m in measures),
+                f"K1/K2 launches per measure: {[m['launches'] for m in measures]}")
+        require(ergo12["launches"] == {fs.K1: 1, fs.K2: 0} and wide["Ks"] == 36
+                and wide["launches"] == {fs.K1: 0, fs.K2: 2},
+                f"ERGO-12 and 36-column launches: {ergo12}, {wide}")
+        require(sum(1 for r in recommends if "fit_s" in r) >= SEARCH_CHANNELS,
+                f"recommends with a fit: {recommends}")
+
+        # one fit's draws: the kernel density card vs CPU and vs the C evaluator
+        (seed, observations, counts), fit_kw, cat_probs = fits[-1][0][:3], fits[-1][1], fits[-1][2]
+        samples = enumerate_feasible(counts)
+        objs = np.random.default_rng(0).random(cat_probs.shape[1])
+        inv_vol = 1.0 / np.prod(counts)
+        offsets = torch.as_tensor(np.concatenate([[0], np.cumsum(counts)])[:-1])
+        model = {d: kernels.KernelModel(cat_probs.to(d), offsets.to(d),
+                                        torch.as_tensor(objs, dtype=torch.float32).to(d), inv_vol)
+                 for d in (dev, torch.device("cpu"))}
+        card = {d: {"num_inv_den": torch.stack(kernels.kernel_contribution(model[d], samples)),
+                    "acq_explore": kernels.acquisition_values(model[d], samples, -1.0),
+                    "acq_exploit": kernels.acquisition_values(model[d], samples, 1.0)}
+                for d in model}
+
+        def rel(a, b):
+            a, b = a.cpu().double(), b.cpu().double()
+            return ((a - b).abs() / b.abs().clamp_min(1e-6 * b.abs().max())).max().item()
+
+        vs_cpu = {k: rel(card[dev][k], card[torch.device("cpu")][k]) for k in card[dev]}
+        n_num, n_inv, _ = native.kernel_contrib_categorical(
+            cat_probs.cpu().double().numpy(), offsets.numpy(), samples, objs, inv_vol)
+        vs_c = rel(card[dev]["num_inv_den"], torch.from_numpy(np.stack([n_num, n_inv])))
+        samples_d = torch.as_tensor(samples, device=dev)
+        acq_ms = cuda_ms(lambda: kernels.acquisition_values(model[dev], samples_d, -1.0))
+        short = [real_fit(seed, observations, counts, **{
+            **fit_kw, "train_steps": FIT_CHECK_STEPS, "device": d}).cpu() for d in (dev, "cpu")]
+        fit_err = (short[0] - short[1]).abs().max().item()
+        t0 = time.perf_counter()
+        cpu_probs = real_fit(seed, observations, counts, **{**fit_kw, "device": "cpu"})
+        cpu_fit_s = time.perf_counter() - t0
+        fit_mean_err = (cat_probs.cpu().mean(0) - cpu_probs.mean(0)).abs().max().item()
+        profile = fit_profile(real_fit, (seed, observations, counts), fit_kw)
+
+        # cli/bo.py: one recommendation on the card from an observations file
+        space = {"parameters": [{"name": p.name, "type": "categorical", "options": p.options}
+                                for p in optimize.search_space()], "batch": 2}
+        (root / "space.json").write_text(json.dumps(space))
+        (root / "obs.json").write_text(json.dumps(
+            [{k: h[k] for k in ("window", "function", "aggregation", "obj")}
+             for h in history[:SEARCH_BUDGET]]))
+        t0 = time.perf_counter()
+        cli_recs = bo.main(["--config", str(root / "space.json"), "--observations",
+                            str(root / "obs.json"), "--out", str(root / "recs.json")])
+        cli_s = time.perf_counter() - t0
+    say("search_checks", draws=list(cat_probs.shape), samples=len(samples),
+        max_rel_err_card_vs_cpu=vs_cpu, max_rel_err_card_vs_c_float64=vs_c,
+        acquisition_ms=acq_ms, fit_seed=seed, fit_card_s=[r["fit_s"] for r in recommends
+                                                          if "fit_s" in r],
+        fit_cpu_s=cpu_fit_s, fit_check_steps=FIT_CHECK_STEPS,
+        fit_max_abs_err_card_vs_cpu=fit_err, fit_mean_over_draws_max_abs_err_card_vs_cpu=(
+            fit_mean_err), fit_profile=profile,
+        cli_bo_recs=cli_recs, cli_bo_s=cli_s,
+        tolerance=f"card vs CPU rtol 1e-5, vs C rtol 1e-4 (floor 1e-6 of the largest value); "
+                  f"fit cat_probs after {FIT_CHECK_STEPS} steps {FIT_TOLERANCE} abs, their "
+                  f"mean over draws after the full fit {FIT_MEAN_TOLERANCE} abs; each "
+                  f"measured MDES table {MEASURE_TOLERANCE} abs")
+    require(all(v <= 1e-5 for v in vs_cpu.values()), f"kernel density card vs CPU: {vs_cpu}")
+    require(vs_c <= 1e-4, f"kernel density card vs the C evaluator: {vs_c}")
+    require(fit_err <= FIT_TOLERANCE and fit_mean_err <= FIT_MEAN_TOLERANCE,
+            f"fit card vs CPU: draws {fit_err}, mean over draws {fit_mean_err}")
+    require(len(cli_recs) == 2 and all(
+        r[p.name] in p.options for r in cli_recs for p in optimize.search_space()),
+        f"cli/bo.py recommendations {cli_recs}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -1425,16 +1691,19 @@ def main() -> int:
     rep_launches, rep_kernels = representations_phase(dev, flush)
     del flush
     gwd_launches = gwd_phase(dev)
+    # 15. the channel search
+    search_launches = search_phase(dev)
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
-    k1["launches"] = (launches[fs.K1] + train_launches[fs.K1] + mosaic_launches + trainer_launches
-                      + rep_k1 + gwd_launches[fs.K1])
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
                               "event_mosaic": mosaic_launches, "trainer": trainer_launches,
-                              "representations": rep_k1, "gwd": gwd_launches[fs.K1]}
-    k2["launches"] = launches_sum_only[fs.K2] + rep_k2 + gwd_launches[fs.K2]
+                              "representations": rep_k1, "gwd": gwd_launches[fs.K1],
+                              "search": search_launches[fs.K1]}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
-                              "representations": rep_k2, "gwd": gwd_launches[fs.K2]}
+                              "representations": rep_k2, "gwd": gwd_launches[fs.K2],
+                              "search": search_launches[fs.K2]}
+    for entry in (k1, k2):
+        entry["launches"] = sum(entry["launches_by_path"].values())
     # the main figures stay those of the serve shape; the new shapes beside them
     for entry, shapes in ((k1, {"event_stack": "EventStack", "time_surface": "TimeSurface"}),
                           (k2, {"histogram": "EventHistogram", "voxel_grid": "VoxelGrid"})):

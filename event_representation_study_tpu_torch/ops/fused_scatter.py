@@ -14,19 +14,26 @@ Pipeline per batch:
    :func:`segment_reduce_sorted_plain` (``index_add_`` and
    ``scatter_reduce_("amax")``).
 
+The kernel is compiled for at most ``KS_MAX`` sum and ``KM_MAX`` max
+columns. Wider tables (a 12-channel MDES table of variances needs 36 sum
+columns) are cut into column groups that fit (:func:`column_groups`), each
+reduced over the same sorted ids, and the outputs concatenated: columns are
+independent, so the result is the same as one wide reduction.
+
 Padding events carry a segment id >= ``num_segments`` and are dropped.
 Empty segments give sum 0 and max ``NEG_INF``; callers decide the fill.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import torch
 
 from .cuda_build import load_library
 
 NEG_INF = -3.4e38
-KS_MAX = 32  # compiled limits of csrc/fused_segment_reduce.cu
+KS_MAX = 32  # compiled limits of csrc/fused_segment_reduce.cu, per launch
 KM_MAX = 16
 
 K1 = "fused_segment_reduce"  # sum + max columns
@@ -61,21 +68,33 @@ def _check(seg_s, vs, vm) -> None:
     if vs.dim() != 3 or vs.dtype != torch.float32:
         raise ValueError(f"vs must be float32 (B, Ks, N), got {vs.dtype} {tuple(vs.shape)}")
     B, ks, n = vs.shape
-    if not 1 <= ks <= KS_MAX:
-        raise ValueError(f"Ks={ks} outside the compiled range 1..{KS_MAX}")
+    if ks < 1:
+        raise ValueError(f"Ks={ks}: the reduction needs at least one sum column")
     if seg_s.dtype != torch.int32 or seg_s.shape != (B, n):
         raise ValueError(f"seg_s must be int32 {(B, n)}, got {seg_s.dtype} {tuple(seg_s.shape)}")
     tensors = [seg_s, vs]
     if vm is not None:
         if vm.dtype != torch.float32 or vm.dim() != 3 or vm.shape[::2] != (B, n):
             raise ValueError(f"vm must be float32 (B, Km, N), got {vm.dtype} {tuple(vm.shape)}")
-        if vm.shape[1] > KM_MAX:
-            raise ValueError(f"Km={vm.shape[1]} above the compiled limit Km <= {KM_MAX}")
         tensors.append(vm)
     if any(t.device != vs.device for t in tensors):
         raise ValueError("seg_s, vs and vm must share one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("seg_s, vs and vm must be contiguous")
+
+
+def column_groups(ks: int, km: int) -> List[Tuple[range, range]]:
+    """The (sum columns, max columns) of each launch: as few launches as
+    ``KS_MAX`` and ``KM_MAX`` allow, the columns spread evenly over them.
+    A table within the limits is one group."""
+    n = max(math.ceil(ks / KS_MAX), math.ceil(km / KM_MAX), 1)
+
+    def split(k):
+        q, r = divmod(k, n)
+        starts = [i * q + min(i, r) for i in range(n + 1)]
+        return [range(starts[i], starts[i + 1]) for i in range(n)]
+
+    return list(zip(split(ks), split(km)))
 
 
 def segment_reduce_sorted(
@@ -87,10 +106,26 @@ def segment_reduce_sorted(
     if vm is not None and vm.shape[1] == 0:
         vm = None
     if vs.is_cuda:
-        return _launch(seg_s, vs, vm, num_segments)
-    if vs.device.type != "cpu":
+        reduce = _launch
+    elif vs.device.type == "cpu":
+        reduce = segment_reduce_sorted_plain
+    else:
         raise ValueError(f"no kernel for device {vs.device}")
-    return segment_reduce_sorted_plain(seg_s, vs, vm, num_segments)
+    groups = column_groups(vs.shape[1], 0 if vm is None else vm.shape[1])
+    if len(groups) == 1:
+        return reduce(seg_s, vs, vm, num_segments)
+    sums, maxes = [], []
+    for s_cols, m_cols in groups:
+        # every launch needs a sum column: a group without one reduces
+        # column 0 again and drops it
+        g_vs = vs[:, s_cols.start:s_cols.stop] if len(s_cols) else vs[:, :1]
+        g_vm = vm[:, m_cols.start:m_cols.stop].contiguous() if len(m_cols) else None
+        g_sums, g_maxes = reduce(seg_s, g_vs.contiguous(), g_vm, num_segments)
+        if len(s_cols):
+            sums.append(g_sums)
+        if g_maxes is not None:
+            maxes.append(g_maxes)
+    return torch.cat(sums, dim=2), torch.cat(maxes, dim=2) if maxes else None
 
 
 def _launch(seg_s, vs, vm, num_segments: int):

@@ -2,8 +2,9 @@
 
 Compiles a MixedDensityEventStack channel table (window, function,
 aggregation) into a deduplicated set of sum- and max-columns, reduces them
-all in ONE kernel launch (:func:`..ops.fused_scatter.fused_segment_reduce`),
-then combines channels elementwise:
+all over one sort (:func:`..ops.fused_scatter.fused_segment_reduce`: one
+kernel launch, or one a column group where a table needs more than the
+kernel's 32 sum or 16 max columns), then combines channels elementwise:
 
 - sum      -> 1 column
 - mean     -> value + count columns (mean of ones == nonempty indicator)
@@ -135,6 +136,10 @@ def _mdes_columns(plan, num, t0, span, any_neg, stacking):
             else:  # sq
                 v = value(f, t_s, p_i)
                 vs.append(v * v * m)
+        if not vs:
+            # a table of maxes only (the JAX package raises here): K1 needs
+            # a sum column, which no channel reads
+            vs.append(torch.zeros_like(t_s))
         vm = []
         for f, w in max_cols:
             m = selector(f, w, p_i, wm(w))
@@ -148,7 +153,7 @@ def _mdes_columns(plan, num, t0, span, any_neg, stacking):
 
 def mdes_partials(x, y, t, p, num, height: int, width: int, plan, stacking: str,
                   t0, span, any_neg):
-    """(sums (B, S, Ks), maxes (B, S, Km) | None) from one kernel launch."""
+    """(sums (B, S, Ks), maxes (B, S, Km) | None) from one fused reduction."""
     B, N = x.shape
     S = height * width
     pos = torch.arange(N, dtype=torch.int32, device=x.device).expand(B, N)
@@ -207,7 +212,7 @@ def mdes_fused_batched(
     aggs: Tuple[str, ...],
     stacking: str = "SBN",
 ) -> torch.Tensor:
-    """(B, H, W, C) float32, one fused kernel launch for all channels."""
+    """(B, H, W, C) float32, all channels from one fused reduction."""
     B, N = blocks.x.shape
     num = blocks.num.to(torch.int32)
     pos = torch.arange(N, dtype=torch.int32, device=blocks.x.device).expand(B, N)

@@ -23,21 +23,9 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the same fake requests and weights)
+from chip_smoke import union_us  # noqa: E402
 
 REQUESTS = 3
-
-
-def union_us(intervals, lo, hi) -> float:
-    spans = sorted((max(s, lo), min(e, hi)) for s, e in intervals if e > lo and s < hi)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
 def main() -> int:

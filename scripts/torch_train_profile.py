@@ -21,7 +21,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the same train state and batches)
-from torch_serve_profile import union_us  # noqa: E402
+from chip_smoke import union_us  # noqa: E402
 
 STEPS = 3
 

@@ -49,6 +49,18 @@ CASES = {
         ("sum", "max", "variance", "mean", "mean", "sum", "max", "variance"), "SBT",
     ),
     "tiny_empty_windows": ([6, 40], [4, 5], (6, 0), ("count", "count"), ("sum", "sum"), "SBN"),
+    # wider than the kernel's 32 sum columns: 12 variances of distinct
+    # (function, window) need 36 sum columns, reduced in two column groups
+    "variance_ks36": (
+        [420, 330], [8, 9], (0, 1, 2, 3, 4, 5, 6, 0, 1, 2, 3, 4),
+        ("timestamp",) * 7 + ("timestamp_pos",) * 5, ("variance",) * 12, "SBN",
+    ),
+    # 33 sum columns and a max column: a K1 group and a K2 group on the card
+    "variance_ks33_km1": (
+        [390, 280], [10, 11], (0, 1, 2, 3, 4, 5, 6, 0, 1, 2, 3, 5),
+        ("timestamp",) * 7 + ("polarity",) * 4 + ("timestamp_neg",),
+        ("variance",) * 11 + ("max",), "SBN",
+    ),
     "zero_span": ([1, 0], [6, 7], WINDOW_INDEXES, FUNCTIONS, AGGREGATIONS, "SBN"),
 }
 
@@ -79,6 +91,20 @@ def test_mdes_vs_pallas_interpret_and_numpy(case):
             assert not got[i].any()
             continue
         ref = numpy_ref.mdes_np(ev, H, W, windows, funcs, aggs, stacking)
+        assert_close(f"window {i} vs numpy_ref", got[i], ref, rtol=2e-4, atol=2e-4)
+
+
+def test_max_only_table_vs_numpy():
+    """A table of max channels only, as a channel search's first candidate
+    can be: the JAX fused function stacks an empty list of sum columns and
+    raises; the port reduces a zero sum column that no channel reads.
+    Against the golden NumPy semantics (2e-4)."""
+    windows, funcs, aggs = (0, 4), ("timestamp", "timestamp_neg"), ("max", "max")
+    evs = _events([400, 210], [12, 13])
+    got = mdes_fused_batched(stack_blocks([from_structured(e, CAP) for e in evs]), H, W,
+                             windows, funcs, aggs).numpy()
+    for i, ev in enumerate(evs):
+        ref = numpy_ref.mdes_np(ev, H, W, windows, funcs, aggs, "SBN")
         assert_close(f"window {i} vs numpy_ref", got[i], ref, rtol=2e-4, atol=2e-4)
 
 

@@ -86,10 +86,11 @@ def test_plain_vs_pallas_interpret(case, km):
         assert_close("maxes", got_m, want_m, atol=0)
 
 
-@pytest.mark.parametrize("km", [12, 16], ids=lambda k: f"km{k}")
+@pytest.mark.parametrize("km", [12, 16, 20], ids=lambda k: f"km{k}")
 def test_wide_max_columns(km):
-    """Km = 12 (the event stack) and 16 (the compiled limit): the plain
-    version against the Pallas kernel in interpret mode and against
+    """Km = 12 (the event stack), 16 (the compiled limit) and 20 (two column
+    groups, the second without a sum column of its own): the plain version
+    against the Pallas kernel in interpret mode and against
     ``ops/scatter.py::segment_max`` column by column, exactly."""
     from event_representation_study_tpu_torch.ops import scatter
 
@@ -153,13 +154,59 @@ def test_sort_glue_offsets():
         assert_close(f"{case}: sorted carry", vs[:, 0], want_carry, atol=0)
 
 
+@pytest.mark.parametrize("ks,km", [(36, 0), (40, 3), (33, 17)], ids=lambda v: str(v))
+def test_wide_tables_vs_pallas_interpret(ks, km):
+    """More columns than the kernel's compiled 32 sums / 16 maxes, which the
+    JAX kernel takes in one call: the port reduces column groups over the
+    same sorted ids and concatenates them. Sums rtol 2e-4, maxes exact."""
+    rng = np.random.default_rng(ks + km)
+    seg = _seg("invalid", rng)
+    a = rng.normal(size=seg.shape).astype(np.float32)
+
+    def columns(xp):
+        stack = (lambda c: jnp.stack(c, axis=1)) if xp is jnp else (lambda c: torch.stack(c, dim=1))
+
+        def columns_fn(pos_s, a_s):
+            pos_f = pos_s.astype(jnp.float32) if xp is jnp else pos_s.to(torch.float32)
+            vs = stack([a_s * (k + 1) + pos_f / 512 for k in range(ks)])
+            if not km:
+                return vs, None
+            return vs, stack([xp.where(pos_s >= 16 * k, a_s - k, NEG_INF) for k in range(km)])
+
+        return columns_fn
+
+    want_s, want_m = jax_fused_segment_reduce(jnp.asarray(seg), (jnp.asarray(a),), columns(jnp), S,
+                                              interpret=True)
+    got_s, got_m = fused_segment_reduce(torch.from_numpy(seg), (torch.from_numpy(a),),
+                                        columns(torch), S)
+    assert got_s.shape == (B, S, ks)
+    assert_close(f"Ks={ks} sums vs Pallas interpret", got_s, want_s, rtol=2e-4, atol=2e-4)
+    if km:
+        assert got_m.shape == (B, S, km)
+        assert_close(f"Km={km} maxes vs Pallas interpret", got_m, want_m, atol=0)
+    else:
+        assert got_m is None and want_m is None
+
+
+def test_column_groups():
+    """Tables within the compiled limits stay one launch (ERGO-12, the
+    widest, the narrowest); wider ones split as evenly as the limits allow."""
+    groups = fused_scatter.column_groups
+    for ks, km in [(18, 3), (18, 0), (32, 16), (1, 12), (1, 0)]:
+        assert groups(ks, km) == [(range(ks), range(km))]
+    assert groups(36, 0) == [(range(0, 18), range(0, 0)), (range(18, 36), range(0, 0))]
+    assert groups(33, 1) == [(range(0, 17), range(0, 1)), (range(17, 33), range(1, 1))]
+    assert groups(1, 20) == [(range(0, 1), range(0, 10)), (range(1, 1), range(10, 20))]
+    assert len(groups(65, 0)) == 3 and len(groups(2, 33)) == 3
+
+
 def test_wrapper_checks_inputs():
     seg_s = torch.zeros((B, N), dtype=torch.int32)
     vs = torch.zeros((B, 4, N))
     with pytest.raises(ValueError, match="Ks"):
-        fused_scatter.segment_reduce_sorted(seg_s, torch.zeros((B, 33, N)), None, S)
-    with pytest.raises(ValueError, match="Km"):
-        fused_scatter.segment_reduce_sorted(seg_s, vs, torch.zeros((B, 17, N)), S)
+        fused_scatter.segment_reduce_sorted(seg_s, torch.zeros((B, 0, N)), None, S)
+    with pytest.raises(ValueError, match="vm"):
+        fused_scatter.segment_reduce_sorted(seg_s, vs, torch.zeros((B, 17, N - 1)), S)
     with pytest.raises(ValueError, match="seg_s"):
         fused_scatter.segment_reduce_sorted(seg_s.to(torch.int64), vs, None, S)
     with pytest.raises(ValueError, match="seg_s"):

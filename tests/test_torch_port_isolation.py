@@ -16,11 +16,14 @@ from event_representation_study_tpu_torch.ops import fused_scatter, roll
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
-# the representation library and the GWD ranking, imported in the probe too
+# the representation library, the GWD ranking and the channel search,
+# imported in the probe too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
-               "cli.gwd")
+               "cli.gwd", "search.benchmarks", "search.chimera", "search.db", "search.native",
+               "search.kernels", "search.bnn", "search.acquisition", "search.gryffin",
+               "search.optimize", "search.mixed", "cli.bo")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -106,6 +109,35 @@ def test_gwd_metrics_default_to_cuda(no_cuda, metric):
             otmi(cloud * 8, np.ones((8, 8, 2), np.float32), 8, 8, rep_size=8)
         else:
             gw_distance(cloud, cloud)
+
+
+def _search_entry(name, tmp_path):
+    from event_representation_study_tpu_torch.search import gryffin, mixed, optimize
+
+    if name == "gryffin":
+        return gryffin.Gryffin(optimize.search_space())
+    if name == "mixed_gryffin":
+        return mixed.MixedGryffin([mixed.ContinuousParam("x", 0.0, 1.0)])
+    if name == "sequential_optimization":
+        return optimize.sequential_optimization(lambda triples: 0.0, channels=1, budget=1)
+    if name == "refine_descriptors":
+        return mixed.refine_descriptors(np.eye(3), np.arange(3.0))
+    from event_representation_study_tpu_torch.cli import bo
+
+    (tmp_path / "space.json").write_text(json.dumps(
+        {"parameters": [{"name": "x", "type": "continuous", "low": 0, "high": 1}]}))
+    return bo.main(["--config", str(tmp_path / "space.json"), "--observations",
+                    str(tmp_path / "obs.json"), "--out", str(tmp_path / "recs.json")])
+
+
+@pytest.mark.parametrize("name", ["gryffin", "mixed_gryffin", "sequential_optimization",
+                                  "refine_descriptors", "cli_bo"])
+def test_search_defaults_to_cuda(no_cuda, name, tmp_path):
+    """The channel search's entry points run the surrogate on ``cuda``
+    unless the caller passes ``device="cpu"`` (``--device cpu``)."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _search_entry(name, tmp_path)
+    assert not (tmp_path / "recs.json").exists()
 
 
 class _CudaLike(torch.Tensor):

@@ -1,12 +1,13 @@
 """Shared parts of the PyTorch-port parity tests (tests/test_torch_port_*.py):
 the comparison that reports its error, a shrunk paper config, random JAX
-detector variables drawn with numpy, and the detector and serve pairs built
-on them."""
+detector variables drawn with numpy, the detector and serve pairs built on
+them, and a NumPy stand-in for the search's BNN surrogate."""
 import functools
 import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
 CFG_PATH = "configs/gen1_optimized.py"
@@ -162,3 +163,64 @@ def eval_outputs(jax_model, variables, model, x):
     with torch.no_grad():
         got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
     return got, want
+
+
+# -- the search (tests/test_torch_port_search_*.py) --------------------------
+
+SEARCH_DRAWS = 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while a search test module runs: its thousands of
+    tiny torch ops spin the thread pool on more cores than they gain from,
+    which slows every file of a parallel test run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _option_blocks(option_counts):
+    off = np.concatenate([[0], np.cumsum(option_counts)]).astype(int)
+    return [(off[d], off[d + 1]) for d in range(len(option_counts))]
+
+
+def fake_categorical(observations, option_counts):
+    """(draws, obs, total) float32 kernels peaked at each observation's
+    options, with noise seeded by the number of observations."""
+    X = np.asarray(observations)
+    rng = np.random.default_rng(1000 + len(X))
+    logits = rng.normal(0.0, 1.0, (SEARCH_DRAWS, len(X), int(sum(option_counts))))
+    out = np.zeros_like(logits)
+    for d, (a, b) in enumerate(_option_blocks(option_counts)):
+        logits[:, np.arange(len(X)), a + X[:, d]] += 2.5
+        e = np.exp(logits[..., a:b])
+        out[..., a:b] = e / e.sum(-1, keepdims=True)
+    return out.astype(np.float32)
+
+
+def fake_mixed(cat_obs, option_counts, cont_obs, n_continuous):
+    X = np.asarray(cont_obs, np.float64)
+    rng = np.random.default_rng(2000 + len(X))
+    cat = fake_categorical(cat_obs, option_counts) if len(option_counts) else \
+        np.zeros((SEARCH_DRAWS, len(X), 0), np.float32)
+    locs = np.clip(X[None] + rng.normal(0, 0.05, (SEARCH_DRAWS,) + X.shape), 0, 1)
+    sqrt_prec = 4.0 + 2.0 * rng.random((SEARCH_DRAWS,) + X.shape)
+    return cat, locs.astype(np.float32), sqrt_prec.astype(np.float32)
+
+
+@pytest.fixture
+def fake_surrogates(monkeypatch):
+    """Both packages' ``bnn.fit_categorical_kernels`` and
+    ``bnn.fit_mixed_kernels`` (looked up at call time in both) replaced by
+    one NumPy function of the observations: the same draws in JAX and in
+    the port, whose generators differ."""
+    from event_representation_study_tpu.search import bnn as j_bnn
+    from event_representation_study_tpu_torch.search import bnn as t_bnn
+
+    for mod in (j_bnn, t_bnn):
+        monkeypatch.setattr(mod, "fit_categorical_kernels",
+                            lambda _seed, obs, counts, **kw: fake_categorical(obs, counts))
+        monkeypatch.setattr(mod, "fit_mixed_kernels",
+                            lambda _seed, c, counts, x, nc, **kw: fake_mixed(c, counts, x, nc))
