@@ -17,7 +17,8 @@ Phases, one printed line each:
    than that (Ks=36, Km=3: two column groups, two launches) and the
    narrowest, the event stack's Km=12, the time surface's 2*H*W segments,
    B=1, the event mosaic's 200,000-event rows), exactly equal to the plain
-   version, with their times.
+   version, with their times beside the plain version's and the library
+   call's.
 5. serve: the full-width ``configs/gen1_optimized.py`` detector serves
    requests of 8 windows through ``make_server``; the kernel launch counters
    are zeroed before and read after, and K1 must run once per request.
@@ -81,6 +82,25 @@ Phases, one printed line each:
    launches for the latter); one fit's draws card vs CPU and vs the float64
    C evaluator, that fit re-run on the CPU, its idle share from a profile,
    ``cli/bo.py`` on the card (``search_checks``).
+16. gen1_published_format: the committed Gen1 fixture in the published
+   format (``tests/data/gen1_blosc_seed7.h5``: superblock v0, Blosc-ZSTD
+   chunks, written by h5py) read where h5py is absent, through
+   ``events/h5lite.py``; the same fixture written here unfiltered by the
+   port's writer; ``Gen1H5`` count and time windows and every window query
+   of ``H5EventHandle`` read both bit-equal; ERGO-12 of the Blosc windows on
+   the card (K1) against the CPU; the read time per window.
+17. classify: ``cli/classify.py`` at full width (ResNet34, stem kernel 14,
+   12 channels, 100 classes, ERGO-12 on K1 at 224², slices of 30,000 events,
+   batch 64, float32) for 2 epochs on a synthetic npz tree of 192 + 64
+   samples; K1 exactly once a train step and once an eval batch; the train
+   step ms, eval ms per image, ``load_s``/``infer_s`` per epoch, peak memory;
+   the step's stages timed one by one (``classify_stages_ms``).
+18. classify_reference: one classifier step (ResNet18, 64²) card vs CPU from
+   the same weights, with Adam and with SGD: loss, logits and BN statistics
+   in float32, and the parameter updates in float64.
+19. kernel_K1_nimagenet: K1 at the classification shape (B 64, N 30,000,
+   S 50,176, Ks 18, Km 3) against its plain version, timed beside its
+   bound and the library call.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -220,25 +240,10 @@ def check_kernel(label, kernel_args, count_cols, flush):
     # both sum in event order: the card equals the CPU bit for bit
     require(err_cpu == 0.0, f"{label}: kernel vs the plain version on the CPU: {err_cpu}")
 
-    # library yardstick: index_add_ + scatter_reduce_ into preallocated outputs
-    rows = torch.arange(bsz, device=vs.device)[:, None] * (num_segments + 1)
-    idx = (seg_s.to(torch.int64).clamp_max(num_segments) + rows).reshape(-1)
-    vs_t = vs.transpose(1, 2).reshape(bsz * n, ks).contiguous()
-    out_s = torch.empty((bsz * (num_segments + 1), ks), device=vs.device)
-    if km:
-        vm_t = vm.transpose(1, 2).reshape(bsz * n, km).contiguous()
-        idx_m = idx[:, None].expand(-1, km).contiguous()
-        out_m = torch.empty((bsz * (num_segments + 1), km), device=vs.device)
-
-    def library():
-        out_s.zero_().index_add_(0, idx, vs_t)
-        if km:
-            out_m.fill_(fs.NEG_INF).scatter_reduce_(0, idx_m, vm_t, "amax", include_self=True)
-
     ms = cuda_ms(lambda: fs.segment_reduce_sorted(*kernel_args), flush=flush)
     ms_warm = cuda_ms(lambda: fs.segment_reduce_sorted(*kernel_args))
     plain_ms = cuda_ms(lambda: fs.segment_reduce_sorted_plain(*kernel_args), flush=flush)
-    library_ms = cuda_ms(library, flush=flush)
+    library_ms = cuda_ms(library_call(*kernel_args), flush=flush)
     # yardstick: writing the kernel's outputs alone
     fill_ms = cuda_ms(lambda: [o.fill_(0.0) for o in (k_sum, k_max) if o is not None], flush=flush)
 
@@ -256,6 +261,30 @@ def check_kernel(label, kernel_args, count_cols, flush):
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
+
+
+def library_call(seg_s, vs, vm, num_segments):
+    """The library yardstick of K1/K2: ``index_add_`` + ``scatter_reduce_``
+    ("amax") into preallocated outputs, as a function to time."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+
+    bsz, ks, n = vs.shape
+    km = 0 if vm is None else vm.shape[1]
+    rows = torch.arange(bsz, device=vs.device)[:, None] * (num_segments + 1)
+    idx = (seg_s.to(torch.int64).clamp_max(num_segments) + rows).reshape(-1)
+    vs_t = vs.transpose(1, 2).reshape(bsz * n, ks).contiguous()
+    out_s = torch.empty((bsz * (num_segments + 1), ks), device=vs.device)
+    if km:
+        vm_t = vm.transpose(1, 2).reshape(bsz * n, km).contiguous()
+        idx_m = idx[:, None].expand(-1, km).contiguous()
+        out_m = torch.empty((bsz * (num_segments + 1), km), device=vs.device)
+
+    def library():
+        out_s.zero_().index_add_(0, idx, vs_t)
+        if km:
+            out_m.fill_(fs.NEG_INF).scatter_reduce_(0, idx_m, vm_t, "amax", include_self=True)
+
+    return library
 
 
 def segment_reduce_bound(seg_s, ks: int, km: int, num_segments: int):
@@ -313,7 +342,8 @@ def hard_shape_args(dev, gen, bsz: int, n: int, s: int, ks: int, km: int, layout
 
 def check_hard_shapes(dev, flush):
     """K1/K2 on HARD_SHAPES against the plain version on the card (exactly
-    equal: the values make every sum exact) and on the CPU; their times."""
+    equal: the values make every sum exact) and on the CPU; their times
+    beside the plain version's and the library call's."""
     from event_representation_study_tpu_torch.ops import fused_scatter as fs
 
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -333,11 +363,14 @@ def check_hard_shapes(dev, flush):
             "equal_cpu_plain": torch.equal(k_sum.cpu(), c_sum) and (km == 0 or torch.equal(k_max.cpu(), c_max)),
         }
         ms = cuda_ms(lambda: fs.segment_reduce_sorted(*args), flush=flush)
+        plain_ms = cuda_ms(lambda: fs.segment_reduce_sorted_plain(*args), flush=flush)
+        library_ms = cuda_ms(library_call(*args), flush=flush)
         row0 = args[0][-1]
         cases[name] = {"shape": {"B": bsz, "N": n, "S": s, "Ks": ks, "Km": km}, "layout": layout,
                        "events_in_densest_pixel": int(torch.unique_consecutive(
                            row0[row0 < s], return_counts=True)[1].max()),
-                       **checks, "ms": ms, "bound_ms": segment_reduce_bound(args[0], ks, km, s)[0]}
+                       **checks, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": segment_reduce_bound(args[0], ks, km, s)[0]}
         require(all(checks.values()), f"hard shape {name}: {checks}")
         del args, k_sum, k_sum2, k_max, k_max2, p_sum, p_max
     say("kernel_hard_shapes", cases=cases,
@@ -792,7 +825,8 @@ def _trainer_fixture(root):
     """Synthetic Gen1 splits from the port's writer: training 2 recordings x
     16 boxes, validation 1 x 16, 200,000 events a recording; Blosc-ZSTD
     chunks when this process can encode them (a Blosc codec, and h5py: the
-    HDF5 subset used without h5py, ``events/h5lite.py``, has no chunks).
+    HDF5 subset used without h5py, ``events/h5lite.py``, reads chunks but
+    writes none).
     Returns (what wrote it, seconds)."""
     from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
     from event_representation_study_tpu_torch.events import blosc_codec, h5lite
@@ -1527,6 +1561,316 @@ def search_phase(dev):
     return launches
 
 
+PUBLISHED_FIXTURE = "tests/data/gen1_blosc_seed7.h5"  # scripts/make_gen1_blosc_fixture.py
+PUBLISHED_SEED = 7
+PUBLISHED_TIME_WINDOW = 150_000  # us
+# (step, window, step unit, window unit) of compute_time_and_index_windows
+PUBLISHED_QUERIES = ((5000, 8000, "nr", "nr"), (50_000, 120_000, "us", "us"),
+                     (40_000, 7000, "nr", "us"), (3000, 90_000, "us", "nr"))
+
+
+def _handle_queries(path, group: str) -> dict:
+    """Every window query of ``H5EventHandle`` over one recording."""
+    from event_representation_study_tpu_torch.events.h5_io import H5EventHandle
+
+    h = H5EventHandle(path, group=group)
+    out = {"len": np.array(len(h)), "index_from_time": np.array(
+        [h.index_from_time(t) for t in (0, 250_000, 500_000, 10**9)]),
+        "between": h.get_between_time(200_000, 260_000),
+        "index_windows": h.compute_index_windows(5000, 3000),
+        "time_windows": h.compute_time_windows(50_000, 20_000)}
+    for j, q in enumerate(PUBLISHED_QUERIES):
+        (t0, t1), (i0, i1) = h.compute_time_and_index_windows(*q)
+        out.update({f"tai{j}_t0": t0, f"tai{j}_t1": t1, f"tai{j}_i0": i0, f"tai{j}_i1": i1})
+    h.close()
+    return out
+
+
+def gen1_published_format_phase(dev):
+    """The committed Gen1 fixture in the published format (superblock v0,
+    Blosc-ZSTD chunks, written by h5py) read on this machine: through
+    ``events/h5lite.py`` where h5py is absent. The same fixture is written
+    here unfiltered by the port's writer; ``Gen1H5`` (count and time
+    windows) and ``H5EventHandle``'s window queries must read both files
+    bit-equal. ERGO-12 of the Blosc file's count windows on the card (K1)
+    against the same call on the CPU. Returns the K1 launches."""
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.data.gen1 import Gen1H5, write_gen1_fixture
+    from event_representation_study_tpu_torch.events import blosc_codec, h5lite
+    from event_representation_study_tpu_torch.events.core import EventBlock
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+
+    blosc_path = pathlib.Path(__file__).resolve().parent / PUBLISHED_FIXTURE
+    hdf5 = "h5lite" if blosc_codec.h5py is h5lite else "h5py"
+    out, read_ms = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        plain_path = pathlib.Path(tmp) / "plain.h5"
+        write_gen1_fixture(plain_path, seed=PUBLISHED_SEED)  # no Blosc: h5lite writes it
+        for mode in ("count", "time"):
+            for fmt, path in (("blosc", blosc_path), ("plain", plain_path)):
+                ds = Gen1H5(path, window_mode=mode, num_events=N,
+                            time_window=PUBLISHED_TIME_WINDOW)
+                require(hdf5 == "h5py" or isinstance(ds.h5, h5lite.File),
+                        f"{fmt} {mode}: read by {type(ds.h5)}, not h5lite")
+                times, samples = [], []
+                for i in range(len(ds)):
+                    t = time.perf_counter()
+                    samples.append(ds[i])
+                    times.append((time.perf_counter() - t) * 1e3)
+                ds.h5.close()
+                out[(mode, fmt)] = samples
+                read_ms[f"{mode}_{fmt}"] = {"median_ms_per_window": statistics.median(times),
+                                            "ms_per_window": times}
+        queries = {fmt: {g: _handle_queries(path, f"{g}/events") for g in ("rec000", "rec001")}
+                   for fmt, path in (("blosc", blosc_path), ("plain", plain_path))}
+    equal = {}
+    for mode in ("count", "time"):
+        a, b = out[(mode, "blosc")], out[(mode, "plain")]
+        equal[f"gen1h5_{mode}"] = len(a) == len(b) > 0 and all(
+            np.array_equal(x.events, y.events) and np.array_equal(x.labels, y.labels)
+            and x.num_events == y.num_events for x, y in zip(a, b))
+    equal["handle_queries"] = all(
+        np.array_equal(queries["blosc"][g][k], queries["plain"][g][k])
+        for g in queries["plain"] for k in queries["plain"][g])
+
+    samples = out[("count", "blosc")]
+    ev = np.stack([s.events for s in samples])
+    blocks = EventBlock(x=ev[:, 0], y=ev[:, 1], t=ev[:, 2], p=ev[:, 3],
+                        num=np.array([s.num_events for s in samples], np.int32))
+    rep_fn = batched_representation("OptimizedRepresentation", samples[0].height, samples[0].width)
+    fs.reset_launches()
+    rep = rep_fn(blocks.to(dev))
+    torch.cuda.synchronize()
+    launches = fs.LAUNCHES[fs.K1]
+    rep_err = (rep.cpu() - rep_fn(blocks.to("cpu"))).abs().max().item()
+    say("gen1_published_format", fixture=PUBLISHED_FIXTURE, bytes=blosc_path.stat().st_size,
+        hdf5=hdf5, windows=len(samples), events_per_window=[s.num_events for s in samples],
+        bit_equal_to_unfiltered=equal, read=read_ms,
+        ergo12={"shape": list(rep.shape), "k1_launches": launches,
+                "max_abs_err_vs_cpu_plain": rep_err, "tolerance": 2e-4 * 255})
+    require(all(equal.values()), f"Blosc vs unfiltered reads: {equal}")
+    require(launches == 1 and bool(torch.isfinite(rep).all()) and rep_err <= 2e-4 * 255,
+            f"ERGO-12 of the published-format windows: K1 {launches}, err {rep_err}")
+    return launches
+
+
+CLASSIFY_TRAIN, CLASSIFY_VAL = (96, 2), (64, 1)  # (classes, samples a class) of the fixture
+CLASSIFY_EVENTS, CLASSIFY_SLICE, CLASSIFY_BATCH = 32_000, 30_000, 64  # a sample, its slice
+CLASSIFY_ARGS = ["model=ResNet34", "kernel_size=14", "channel_size=12", "num_classes=100",
+                 "loader_type=reshape_then_optimized", "optimizer=Adam", "learning_rate=3e-4",
+                 "epochs=2"]
+
+
+def classify_phase(dev):
+    """``cli/classify.py`` at full width: ResNet34, stem kernel 14, 12
+    channels, 100 classes, ERGO-12 on K1 at 224², slices of 30,000 events,
+    batch 64, float32, for 2 epochs on a synthetic npz tree (192 training
+    and 64 validation samples of 32,000 events at the 480x640 sensor). The
+    train and eval steps are wrapped to time them (synchronised) and to
+    count K1's launches in each. Returns (K1 launches, a collated
+    validation batch on the card)."""
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import classify
+    from event_representation_study_tpu_torch.data.nimagenet import (
+        NImageNetDataset, write_nimagenet_fixture)
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.train.classifier import ClassifierTrainer
+
+    calls = []
+    real = {"train": ClassifierTrainer.train_step, "eval": ClassifierTrainer.eval_step}
+
+    def probe(kind):
+        def wrapped(self, *a):
+            k1, t = fs.LAUNCHES[fs.K1], time.perf_counter()
+            out = real[kind](self, *a)
+            torch.cuda.synchronize()
+            calls.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3,
+                          "k1": fs.LAUNCHES[fs.K1] - k1,
+                          "finite": bool(torch.isfinite(out[1] if kind == "train" else out).all())})
+            return out
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        lists = {}
+        for split, (classes, per), seed in (("train", CLASSIFY_TRAIN, 0),
+                                            ("val", CLASSIFY_VAL, 10_000)):
+            files, _ = write_nimagenet_fixture(root / split, num_classes=classes, per_class=per,
+                                               n_events=CLASSIFY_EVENTS, seed=seed)
+            lists[split] = root / f"{split}.txt"
+            lists[split].write_text("\n".join(files))
+        fixture_s = time.perf_counter() - t0
+        ClassifierTrainer.train_step, ClassifierTrainer.eval_step = probe("train"), probe("eval")
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fs.reset_launches()
+            t0 = time.perf_counter()
+            history = classify.main(["--train-list", str(lists["train"]), "--val-list",
+                                     str(lists["val"]), "--override", "seed=1",
+                                     *CLASSIFY_ARGS, f"slice_length={CLASSIFY_SLICE}",
+                                     f"batch_size={CLASSIFY_BATCH}"])
+            run_s = time.perf_counter() - t0
+            launches = fs.LAUNCHES[fs.K1]
+        finally:
+            ClassifierTrainer.train_step, ClassifierTrainer.eval_step = real["train"], real["eval"]
+        peak = torch.cuda.max_memory_allocated()
+        val = NImageNetDataset(*classify.read_list(lists["val"]), slice_length=CLASSIFY_SLICE)
+        blocks, _ = ClassifierTrainer._collate([val[i] for i in range(CLASSIFY_BATCH)])
+    train = [c for c in calls if c["kind"] == "train"]
+    evals = [c for c in calls if c["kind"] == "eval"]
+    n_train, n_val = (c * p for c, p in (CLASSIFY_TRAIN, CLASSIFY_VAL))
+    say("classify", args=CLASSIFY_ARGS, batch=CLASSIFY_BATCH, slice_length=CLASSIFY_SLICE,
+        train_samples=n_train, val_samples=n_val,
+        events_per_sample=CLASSIFY_EVENTS, fixture_s=fixture_s, run_s=run_s,
+        train_step_ms=[c["ms"] for c in train],
+        train_step_ms_median=statistics.median(c["ms"] for c in train),
+        eval_ms_per_image=[c["ms"] / CLASSIFY_BATCH for c in evals],
+        epochs=[{"epoch": h["epoch"], "train": h["train"], "val": h["val"]} for h in history],
+        k1_launches=launches, k1_per_call=[c["k1"] for c in calls],
+        peak_mem_bytes=peak, tf32=tf32_state())
+    require(len(history) == 2 and len(train) == 2 * (n_train // CLASSIFY_BATCH)
+            and len(evals) == 2 * -(-n_val // CLASSIFY_BATCH),
+            f"steps {len(train)}, eval batches {len(evals)}")
+    require(all(c["k1"] == 1 and c["finite"] for c in calls) and launches == len(calls),
+            f"K1 launches per train step / eval batch: {[c['k1'] for c in calls]}, "
+            f"total {launches}")
+    require(all(math.isfinite(h["train"]["loss"]) and 0 <= h["val"]["top1"] <= 1
+                for h in history), f"epochs {history}")
+    classify_stages(dev, blocks)
+    return launches, blocks.to(dev)
+
+
+def classify_stages(dev, blocks):
+    """Where a classification train step's device time goes, stage by
+    stage on one batch of 64 (CUDA events, mean of 5): the copy to the
+    card, ERGO-12 (sort glue + K1), the ResNet34 forward + cross-entropy +
+    backward, Adam's update; and the eval forward."""
+    import torch.nn.functional as F
+
+    from event_representation_study_tpu_torch.models.resnet import EventResNet
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+
+    model = EventResNet(100, "ResNet34").to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-4)
+    rep_fn = batched_representation("OptimizedRepresentation", 224, 224)
+    on_card = blocks.to(dev)
+    x = (rep_fn(on_card) / 255.0).permute(0, 3, 1, 2)  # as ClassifierTrainer.images_of
+    labels = torch.zeros(x.shape[0], dtype=torch.long, device=dev)
+
+    def forward_backward():
+        model.zero_grad(set_to_none=False)
+        F.cross_entropy(model(x), labels).backward()
+
+    model.train()
+    stages = {"h2d": cuda_ms(lambda: blocks.to(dev), 5), "ergo12": cuda_ms(lambda: rep_fn(on_card), 5),
+              "forward_loss_backward": cuda_ms(forward_backward, 5), "adam": cuda_ms(opt.step, 5)}
+    model.eval()
+    with torch.no_grad():
+        stages["eval_forward"] = cuda_ms(lambda: model(x), 5)
+    say("classify_stages_ms", batch=x.shape[0], **stages, tf32=tf32_state())
+
+
+def classify_reference(dev):
+    """One ``ClassifierTrainer`` step of a shrunk classifier (ResNet18, 64²,
+    12 channels) on the card and on the CPU from the same weights and the
+    same input, with Adam and with SGD, in float32 and in float64. The input
+    is ERGO-12 of 4 fake windows of 4,000 events built once on the CPU and
+    given to both through the trainer's prebuilt-image path
+    (``representation=None``); ERGO-12 of the same windows on the card (K1)
+    is held against it beside. Loss, logits and BatchNorm statistics are
+    held in float32 and float64, the updates in float64 elementwise and the
+    float32 SGD update by its worst leaf's relative L2 error. In float32 an
+    update is not a continuous function of rounding: one flipped ReLU or
+    max-pool choice moves a weight-gradient row by percents when a deep
+    stage has few positions a channel, so the SGD bound, 5e-2, sits above
+    what the CPU alone shows between float32 and float64 (printed beside as
+    ``sgd_f32_vs_f64_on_cpu_leaf_l2``). Adam's first update, lr * g /
+    (|g| + eps), flips sign where |g| is at float32's noise, so its float32
+    update errors are only printed."""
+    from event_representation_study_tpu_torch.models.resnet import EventResNet
+    from event_representation_study_tpu_torch.train import classifier
+
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+
+    img, nc = 64, 10
+    blocks = fake_batch(70, n_windows=4, n_events=4000, height=img, width=img)
+    labels = torch.tensor([1, 3, 5, 7])
+    rep_fn = batched_representation("OptimizedRepresentation", img, img)
+    images = rep_fn(blocks) / 255.0
+    rep_err = (rep_fn(blocks.to(dev)).cpu() / 255.0 - images).abs().max().item()
+    opts = {"adam": dict(optimizer="Adam"),
+            "sgd": dict(optimizer="SGD", lr=0.05, weight_decay=1e-4)}
+    runs, weights = {}, None
+    for opt, kw in opts.items():
+        for dtype in (torch.float32, torch.float64):
+            for d in ("cpu", "cuda"):
+                tr = classifier.ClassifierTrainer(EventResNet(nc, "ResNet18"), None, nc,
+                                                  device=d, **kw)
+                tr.init()  # seeded; the first CPU draw is loaded everywhere
+                weights = weights or copy.deepcopy(tr.model.state_dict())
+                tr.model.load_state_dict(weights)
+                tr.model.to(dtype)
+                loss, logits = tr.train_step(images.to(d, dtype), labels.to(d))
+                runs[(opt, dtype, d)] = {
+                    "loss": loss.item(), "logits": logits.double().cpu().numpy(),
+                    "state": {k: v.double().cpu().numpy()
+                              for k, v in tr.model.state_dict().items()
+                              if not k.endswith("num_batches_tracked")}}
+    before = {k: v.double().numpy() for k, v in weights.items()
+              if not k.endswith("num_batches_tracked")}
+    params = [k for k in before if "running_" not in k]
+    stats = [k for k in before if "running_" in k]
+
+    def update_errs(card, cpu):
+        """Largest card-CPU difference of a leaf's update over the CPU's
+        largest, and the largest relative L2 error of a leaf's update."""
+        over_max, l2 = 0.0, 0.0
+        for k in params:
+            dc, dg = cpu[k] - before[k], card[k] - before[k]
+            over_max = max(over_max, float(np.abs(dg - dc).max() / (np.abs(dc).max() + 1e-30)))
+            l2 = max(l2, float(np.linalg.norm(dg - dc) / (np.linalg.norm(dc) + 1e-30)))
+        return over_max, l2
+
+    errs = {}
+    for opt in opts:
+        e = {}
+        for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+            card, cpu = runs[(opt, dtype, "cuda")], runs[(opt, dtype, "cpu")]
+            e[f"{tag}_loss_rel"] = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+            e[f"{tag}_logits_over_max"] = float(np.abs(card["logits"] - cpu["logits"]).max()
+                                                / np.abs(cpu["logits"]).max())
+            e[f"{tag}_update_over_leaf_max"], e[f"{tag}_update_leaf_l2"] = update_errs(
+                card["state"], cpu["state"])
+            bn = {k: np.abs(card["state"][k] - cpu["state"][k]) for k in stats}
+            e[f"{tag}_bn_stats_max_abs"] = max(float(v.max()) for v in bn.values())
+            e[f"{tag}_bn_stats_within"] = all(
+                bool((v <= 1e-4 + 2e-3 * np.abs(cpu["state"][k])).all()) for k, v in bn.items())
+        errs[opt] = e
+    f32_vs_f64 = update_errs(runs[("sgd", torch.float32, "cpu")]["state"],
+                             runs[("sgd", torch.float64, "cpu")]["state"])[1]
+    say("classify_reference", max_err=errs, ergo12_max_abs_err_vs_cpu=rep_err,
+        sgd_f32_vs_f64_on_cpu_leaf_l2=f32_vs_f64,
+        tolerance="ERGO-12 2e-4 (of 0..1); float32: loss 1e-4 relative, logits 1e-4 of the "
+                  "largest, BN statistics atol 1e-4 + rtol 2e-3, SGD update 5e-2 of each "
+                  "leaf's L2 norm; float64: loss, logits and each leaf's update 1e-8 of the "
+                  "CPU's largest, BN statistics as float32", tf32=tf32_state())
+    require(rep_err <= 2e-4, f"ERGO-12 at 64² card vs CPU: {rep_err}")
+    for opt, e in errs.items():
+        require(e["f32_loss_rel"] <= 1e-4 and e["f32_logits_over_max"] <= 1e-4
+                and e["f32_bn_stats_within"] and e["f64_loss_rel"] <= 1e-8
+                and e["f64_logits_over_max"] <= 1e-8 and e["f64_update_over_leaf_max"] <= 1e-8
+                and e["f64_bn_stats_within"]
+                and (opt != "sgd" or e["f32_update_leaf_l2"] <= 5e-2),
+                f"classifier step card vs CPU ({opt}): {e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -1693,12 +2037,26 @@ def main() -> int:
     gwd_launches = gwd_phase(dev)
     # 15. the channel search
     search_launches = search_phase(dev)
+    # 16-19. published-format Gen1 files, and Mini N-ImageNet classification
+    published_launches = gen1_published_format_phase(dev)
+    classify_launches, cls_blocks = classify_phase(dev)
+    classify_reference(dev)
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+
+    _, _, k1_cls_args = capture_kernel_inputs(
+        lambda: batched_representation("OptimizedRepresentation", 224, 224)(cls_blocks))
+    del cls_blocks
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    k1_cls = check_kernel("kernel_K1_nimagenet", k1_cls_args, cnt_cols, flush)
+    del flush, k1_cls_args
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
                               "event_mosaic": mosaic_launches, "trainer": trainer_launches,
                               "representations": rep_k1, "gwd": gwd_launches[fs.K1],
-                              "search": search_launches[fs.K1]}
+                              "search": search_launches[fs.K1],
+                              "gen1_published_format": published_launches,
+                              "classify": classify_launches}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
                               "search": search_launches[fs.K2]}
@@ -1715,6 +2073,10 @@ def main() -> int:
                                                      "library_ms", "max_abs_err",
                                                      "share_of_representation")},
                 "launches": rep_launches[name][entry["name"]]}
+        if entry is k1:
+            entry["by_shape"]["nimagenet"] = {
+                **{k: k1_cls[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                          "max_abs_err")}, "launches": classify_launches}
         entry["max_abs_err"] = max(v["max_abs_err"] for v in entry["by_shape"].values())
     k3["launches"] = train_launches["roll_rows"]
     k3["launches_by_path"] = {"train": train_launches["roll_rows"]}

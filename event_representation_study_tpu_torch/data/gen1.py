@@ -1,6 +1,6 @@
 """Gen1 automotive detection dataset over the study's HDF5 layout (a copy of
 the JAX package's ``data/gen1.py``, host NumPy + h5py, or without h5py
-``events/h5lite.py`` for files without Blosc chunks).
+``events/h5lite.py``, which reads the published files' Blosc chunks too).
 
 Layout (ev-YOLOv6/yolov6/data/gen1_2yolo.py:65-198): one file per split
 (training/validation/testing.h5), one group per recording with
@@ -25,7 +25,7 @@ import numpy as np
 
 try:
     import h5py
-except ImportError:  # no h5py: the HDF5 subset of events/h5lite.py (no Blosc)
+except ImportError:  # no h5py: events/h5lite.py (reads Blosc chunks, writes none)
     from ..events import h5lite as h5py
 
 SPLIT_FILES = {"train": "training.h5", "val": "validation.h5", "test": "testing.h5"}
@@ -60,7 +60,8 @@ class Gen1H5:
         root = pathlib.Path(root)
         path = root / SPLIT_FILES[task.lower()] if root.is_dir() else root
         # the published split files are Blosc-ZSTD compressed (gen1_2yolo.py:12
-        # imports hdf5plugin); open_h5 decodes those chunks even without it
+        # imports hdf5plugin); open_h5 decodes those chunks without it, and
+        # without h5py (h5lite)
         from ..events import blosc_codec
 
         self.h5 = blosc_codec.open_h5(path, "r")

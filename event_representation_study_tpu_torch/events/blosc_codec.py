@@ -42,7 +42,7 @@ import numpy as np
 
 try:
     import h5py
-except ImportError:  # no h5py: plain (unchunked) datasets through h5lite only
+except ImportError:  # no h5py: h5lite reads Blosc chunks itself, and writes none
     from . import h5lite as h5py
 
 BLOSC_H5_FILTER_ID = 32001
@@ -496,8 +496,12 @@ class H5Group:
 
 def open_h5(path, mode: str = "r"):
     """``h5py.File`` opener that transparently decodes Blosc datasets when no
-    HDF5 plugin is registered.  Drop-in for read paths."""
+    HDF5 plugin is registered.  Drop-in for read paths. Without h5py it
+    returns an ``h5lite.File``, which decodes Blosc chunks (this module's
+    frame decoder) as it reads them."""
     f = h5py.File(path, mode)
+    if h5py.__name__.endswith("h5lite"):
+        return f
     if mode == "r" and not h5py_can_decode_blosc():
         return H5Group(f)
     return f

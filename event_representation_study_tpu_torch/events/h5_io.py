@@ -1,44 +1,79 @@
-"""Event-file loading (the JAX package's ``events/h5_io.py``): the read part
-of :class:`H5EventHandle` over the canonical ``events/{x,y,t,p,height,
-width}`` layout, with Blosc-ZSTD chunks decoded by ``blosc_codec`` when no
-HDF5 plugin is installed, and the ``.h5``/``.hdf5``, ``.npz`` and ``.npy``
-branches of ``load_events_from_path``. The time and index window queries
-and ``H5Writer`` (ROADMAP M19), and ``.dat``, ``.bin`` and ``.bag`` (M19),
-are not ported."""
+"""Event-file loading (the JAX package's ``events/h5_io.py``): the read
+handle :class:`H5EventHandle` over the canonical ``events/{x,y,t,p,height,
+width}`` layout with its time and index window queries (``events/
+windows.py``), through h5py, or without it through ``events/h5lite.py``;
+Blosc-ZSTD chunks are decoded by ``blosc_codec`` either way. And the
+``.h5``/``.hdf5``, ``.npz`` and ``.npy`` branches of
+``load_events_from_path``. ``H5Writer`` and the ``.dat``, ``.bin`` and
+``.bag`` branches are not ported (ROADMAP M19)."""
 from __future__ import annotations
 
 import pathlib
+from typing import Optional
 
 import numpy as np
 
 from . import blosc_codec
 from .core import normalize_polarity
+from .windows import (find_index_from_timestamps, index_windows, time_and_index_windows,
+                      time_windows)
 
 _DTYPE = [("x", "<i4"), ("y", "<i4"), ("t", "<i8"), ("p", "<i4")]
 
 
 class H5EventHandle:
-    """Read handle over the canonical layout."""
+    """Read handle over the canonical layout. ``group`` names the group of
+    ``x, y, t, p`` columns: ``events`` in an events file, and
+    ``<recording>/events`` in a Gen1 split file."""
 
-    def __init__(self, path):
+    def __init__(self, path, group: str = "events"):
         self.f = blosc_codec.open_h5(path, "r")
-        g = self.f["events"]
+        self.group = group
+        g = self.f[group]
         if not all(k in g for k in ("x", "y", "t", "p")):
-            raise ValueError(f"{path}: not an events file (no events/x, y, t, p)")
+            raise ValueError(f"{path}: not an events file (no {group}/x, y, t, p)")
         self.height = int(g["height"][()]) if "height" in g else int(g["y"][:].max()) + 1
         self.width = int(g["width"][()]) if "width" in g else int(g["x"][:].max()) + 1
 
+    def _t(self) -> np.ndarray:
+        return self.f[f"{self.group}/t"][:]
+
     def __len__(self):
-        return len(self.f["events/t"])
+        return len(self.f[f"{self.group}/t"])
+
+    def index_from_time(self, t_us: int) -> int:
+        """Reference lookup (h5_event_handle.py:10-11): searchsorted of
+        t_us + 1e-3, so an event exactly AT t_us belongs to the window
+        ENDING here."""
+        return int(find_index_from_timestamps(t_us, self._t()))
 
     def get_between_idx(self, i0: int, i1: int) -> np.ndarray:
-        g = self.f["events"]
+        g = self.f[self.group]
         out = np.zeros(i1 - i0, dtype=_DTYPE)
         out["x"] = g["x"][i0:i1]
         out["y"] = g["y"][i0:i1]
         out["t"] = g["t"][i0:i1]
         out["p"] = normalize_polarity(np.asarray(g["p"][i0:i1]))
         return out
+
+    def get_between_time(self, t0_us: int, t1_us: int) -> np.ndarray:
+        return self.get_between_idx(self.index_from_time(t0_us), self.index_from_time(t1_us))
+
+    def compute_index_windows(self, window: int, stride: Optional[int] = None):
+        """Fixed-count END-aligned windows (h5_event_handle.py:71-103,
+        units nr/nr: ends on the stride grid, spans reaching back).
+        Needs only the stream length: no dataset read."""
+        return index_windows(len(self), window, stride)
+
+    def compute_time_windows(self, window_us: int, stride_us: Optional[int] = None):
+        """Fixed-duration END-aligned windows (units us/us)."""
+        return time_windows(self._t(), window_us, stride_us)
+
+    def compute_time_and_index_windows(self, step_size: int, window: int,
+                                       step_size_unit: str, window_unit: str):
+        """The reference's full (mixed-unit) form (h5_event_handle.py:71-103)."""
+        return time_and_index_windows(self._t(), step_size, window, step_size_unit,
+                                      window_unit)
 
     def close(self):
         self.f.close()

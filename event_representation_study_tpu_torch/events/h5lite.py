@@ -1,25 +1,35 @@
 """A subset of HDF5 in pure Python and NumPy, for hosts without ``h5py``.
 
-It writes and reads files in the HDF5 format itself (``h5py`` and the HDF5
-tools open what it writes): superblock version 2, version-2 object headers,
-groups with their links stored in the header (compact storage), and
-datasets of little-endian integers or floats, scalar or N-d, stored
-contiguously. That covers the Gen1 layout that ``data/gen1.py`` writes
-without Blosc. What it does not cover (chunked or compressed datasets,
-attributes, dense link storage, older superblocks, as in the published
-Gen1 files) raises: such files need ``h5py``.
+It writes files in the HDF5 format itself (``h5py`` and the HDF5 tools open
+what it writes): superblock version 2, version-2 object headers, groups
+with their links stored in the header (compact storage), and datasets of
+little-endian integers or floats, scalar or N-d, stored contiguously.
+
+It reads what it writes, and the format that ``h5py`` writes by default
+(``libver="earliest"``), in which the published Gen1 files come:
+superblock version 0 or 1, version-1 object headers with continuation
+blocks, symbol-table groups (a version-1 B-tree of SNOD nodes over a local
+heap of names), and datasets stored contiguously, compactly or in chunks
+indexed by a version-1 B-tree, unfiltered or through the Blosc filter
+(id 32001, decoded by ``blosc_codec``'s frame decoder). A chunk whose
+filter mask marks the filter as skipped is read raw; a chunk never written
+reads as zeros (h5py's default fill value). ``ds[i0:i1]`` decodes only
+the chunks that the rows overlap. What it does not cover raises, naming
+what is missing: other filters, the chunk indexes of data layout version 4
+(``libver="latest"``), attributes, dense link storage, writing chunks.
 
 The surface is the part of ``h5py`` that this package uses: ``File(path,
 "r" | "w")``, ``Group.create_group``/``keys``/``[path]``/``[name] = array``,
-and ``Dataset.shape``/``dtype``/``[index]``/``[()]``/``np.asarray``.
+and ``Dataset.shape``/``dtype``/``chunks``/``[index]``/``[()]``/``np.asarray``.
 
 Format reference: the HDF5 File Format Specification, version 3.0
-(superblock v2 §II.A, object header v2 §IV.A.1.b, messages §IV.A.2).
+(superblocks §II.A, v1 B-trees §III.A.1, SNOD §III.B, local heaps §III.D,
+object headers §IV.A.1, messages §IV.A.2).
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -29,6 +39,10 @@ _SUPERBLOCK_SIZE = 48
 # object header message types
 _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_VALUE, _LINK, _LAYOUT, _GROUP_INFO = (
     0x01, 0x02, 0x03, 0x05, 0x06, 0x08, 0x0A)
+_FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0x0B, 0x10, 0x11
+BLOSC_FILTER_ID = 32001
+_CHUNK_INDEXES = {1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensible array",
+                  5: "version-2 B-tree"}
 
 
 def _rot(x: int, k: int) -> int:
@@ -155,88 +169,271 @@ class _Writer:
 
 # ----------------------------------------------------------------- reading
 
+def _messages(block: bytes, version: int, step: int, msgs: Dict[int, list],
+              more: list) -> None:
+    """Add a block's messages to ``msgs``, and its continuations (address,
+    length) to ``more``. A version-1 message: type (2), size (2, a multiple
+    of 8), flags (1), 3 reserved bytes; version 2: type (1), size (2),
+    flags (1), with ``step`` 6 a 2-byte creation order; then the data."""
+    i = 0
+    while i + step <= len(block):
+        if version == 1:
+            mtype, msize, mflags = struct.unpack_from("<HHB", block, i)
+        else:
+            mtype, msize, mflags = block[i], struct.unpack_from("<H", block, i + 1)[0], block[i + 3]
+        data = block[i + step:i + step + msize]
+        if mflags & 0x02 and mtype:
+            raise NotImplementedError(f"shared object header messages (type {mtype:#x})")
+        if mtype == _CONTINUATION:
+            more.append(struct.unpack_from("<QQ", data))
+        elif mtype:
+            msgs.setdefault(mtype, []).append(data)
+        i += step + msize
+
+
 def _read_header(fh, addr: int) -> Dict[int, list]:
-    """{message type: [message data, ...]} of the object header at ``addr``."""
+    """{message type: [message data, ...]} of the object header at ``addr``
+    (version 1 or 2), its continuation blocks followed."""
     fh.seek(addr)
-    head = fh.read(6)
+    head = fh.read(16)
+    msgs: Dict[int, list] = {}
+    more: List[Tuple[int, int]] = []
+    if head[0] == 1:  # version 1: 16-byte prefix, messages 8-byte aligned
+        (size,) = struct.unpack_from("<I", head, 8)
+        fh.seek(addr + 16)
+        _messages(fh.read(size), 1, 8, msgs, more)
+        while more:
+            at, length = more.pop(0)
+            fh.seek(at)
+            _messages(fh.read(length), 1, 8, msgs, more)
+        return msgs
     if head[:4] != b"OHDR" or head[4] != 2:
-        raise NotImplementedError("only version-2 object headers are in h5lite")
+        raise NotImplementedError(f"object header at {addr}: not a version-1 or 2 header")
     flags = head[5]
     # bit 5: four 4-byte times; bit 4: two 2-byte attribute phase values
-    head += fh.read((16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0))
+    at = addr + 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
     width = 1 << (flags & 0x03)
-    size = int.from_bytes(fh.read(width), "little")
+    fh.seek(addr)
+    head = fh.read(at - addr + width)
+    size = int.from_bytes(head[-width:], "little")
     body = fh.read(size)
     (stored,) = struct.unpack("<I", fh.read(4))
-    if checksum(head + size.to_bytes(width, "little") + body) != stored:
+    if checksum(head + body) != stored:
         raise OSError(f"object header at {addr}: checksum mismatch")
-    msgs: Dict[int, list] = {}
-    i, step = 0, 6 if flags & 0x04 else 4
-    while i + step <= len(body):
-        mtype, msize = body[i], struct.unpack_from("<H", body, i + 1)[0]
-        if mtype == 0x10:
-            raise NotImplementedError("object header continuation blocks")
-        msgs.setdefault(mtype, []).append(body[i + step:i + step + msize])
-        i += step + msize
+    step = 6 if flags & 0x04 else 4
+    _messages(body, 2, step, msgs, more)
+    while more:
+        at, length = more.pop(0)
+        fh.seek(at)
+        block = fh.read(length)
+        if block[:4] != b"OCHK" or checksum(block[:-4]) != struct.unpack_from("<I", block,
+                                                                              length - 4)[0]:
+            raise OSError(f"object header continuation at {at}: bad signature or checksum")
+        _messages(block[4:-4], 2, step, msgs, more)
     return msgs
 
 
+def _btree_children(fh, addr: int, node_type: int, key_size: int):
+    """(key bytes, child address) of every entry under the version-1 B-tree
+    node at ``addr``, leaves only, in key order."""
+    fh.seek(addr)
+    head = fh.read(24)
+    if head[:4] != b"TREE" or head[4] != node_type:
+        raise OSError(f"v1 B-tree node at {addr}: bad signature or node type")
+    level, entries = head[5], struct.unpack_from("<H", head, 6)[0]
+    body = fh.read(entries * (key_size + 8) + key_size)
+    out = []
+    for e in range(entries):
+        i = e * (key_size + 8)
+        key, child = body[i:i + key_size], struct.unpack_from("<Q", body, i + key_size)[0]
+        out.extend(_btree_children(fh, child, node_type, key_size) if level else [(key, child)])
+    return out
+
+
+def _symbol_table_links(fh, btree: int, heap: int) -> Dict[str, int]:
+    """The links of an old-style group: its B-tree (type 0) over SNOD nodes
+    of symbol table entries, their names in the local heap."""
+    fh.seek(heap)
+    h = fh.read(32)
+    if h[:4] != b"HEAP":
+        raise OSError(f"local heap at {heap}: bad signature")
+    heap_size, _, heap_data = struct.unpack_from("<QQQ", h, 8)
+    fh.seek(heap_data)
+    names = fh.read(heap_size)
+    links = {}
+    for _, snod in _btree_children(fh, btree, 0, 8):
+        fh.seek(snod)
+        head = fh.read(8)
+        if head[:4] != b"SNOD":
+            raise OSError(f"symbol table node at {snod}: bad signature")
+        (count,) = struct.unpack_from("<H", head, 6)
+        table = fh.read(40 * count)
+        for k in range(count):
+            name_at, header = struct.unpack_from("<QQ", table, 40 * k)
+            links[names[name_at:names.index(b"\0", name_at)].decode()] = header
+    return links
+
+
+def _filters(data: bytes) -> List[Tuple[int, str]]:
+    """(id, name) of each filter of a filter pipeline message, version 1 or
+    2, in the order the writer applied them."""
+    version, count = data[0], data[1]
+    i = 8 if version == 1 else 2
+    out = []
+    for _ in range(count):
+        fid = struct.unpack_from("<H", data, i)[0]
+        if version == 1 or fid >= 256:
+            name_len, _, n_values = struct.unpack_from("<HHH", data, i + 2)
+            i += 8
+        else:
+            name_len, (_, n_values) = 0, struct.unpack_from("<HH", data, i + 2)
+            i += 6
+        name = data[i:i + name_len].split(b"\0")[0].decode(errors="replace")
+        i += (name_len + 7) // 8 * 8 if version == 1 else name_len
+        i += 4 * n_values + (4 if version == 1 and n_values % 2 else 0)
+        out.append((fid, name))
+    return out
+
+
+def _decode_chunk(raw: bytes, filters, mask: int) -> bytes:
+    """Undo the pipeline, last filter first; bit j of ``mask`` marks filter
+    j as skipped for this chunk."""
+    for j in reversed(range(len(filters))):
+        if mask >> j & 1:
+            continue
+        if filters[j][0] != BLOSC_FILTER_ID:  # refused when the dataset opened
+            raise AssertionError(filters[j])
+        from . import blosc_codec  # imports this module: taken here, not at import
+
+        raw = blosc_codec.decompress_frame(raw)
+    return raw
+
+
 class Dataset:
-    def __init__(self, fh, name: str, msgs: Dict[int, list]):
-        self._fh = fh
+    def __init__(self, file: "File", name: str, msgs: Dict[int, list]):
+        self._file = file
         self.name = name
         space = msgs[_DATASPACE][0]
-        if space[0] != 2:
-            raise NotImplementedError("dataspace message version != 2")
         ndim = space[1]
-        self.shape = tuple(struct.unpack_from(f"<{ndim}Q", space, 4)) if space[3] == 1 else ()
+        if space[0] == 1:  # version 1: rank 0 is a scalar
+            dims_at, scalar = 8, ndim == 0
+        elif space[0] == 2:
+            dims_at, scalar = 4, space[3] != 1
+        else:
+            raise NotImplementedError(f"dataspace message version {space[0]}")
+        self.shape = () if scalar else tuple(struct.unpack_from(f"<{ndim}Q", space, dims_at))
         self.dtype = _parse_datatype(msgs[_DATATYPE][0])
+        self.chunks: Optional[Tuple[int, ...]] = None
+        self._filters = _filters(msgs[_FILTERS][0]) if _FILTERS in msgs else []
+        for fid, fname in self._filters:
+            if fid != BLOSC_FILTER_ID:
+                raise NotImplementedError(
+                    f"{name}: HDF5 filter {fid} ({fname or 'unnamed'}) is not in h5lite, "
+                    f"which decodes only filter {BLOSC_FILTER_ID} (Blosc); read it with h5py")
         layout = msgs[_LAYOUT][0]
+        version, cls = layout[0], layout[1]
         self._inline = None
-        if layout[0] in (3, 4) and layout[1] == 0:  # compact: the data is in the header
+        if version not in (3, 4):
+            raise NotImplementedError(f"{name}: data layout message version {version}")
+        if cls == 0:  # compact: the data is in the header
             (n,) = struct.unpack_from("<H", layout, 2)
             self._inline = bytes(layout[4:4 + n])
-        elif layout[0] in (3, 4) and layout[1] == 1:
+        elif cls == 1:
             self._addr = struct.unpack_from("<Q", layout, 2)[0]
+        elif cls == 2 and version == 3:
+            rank = layout[2] - 1  # the last dimension is the element size
+            self._btree = struct.unpack_from("<Q", layout, 3)[0]
+            self.chunks = tuple(struct.unpack_from(f"<{rank}I", layout, 11))
+        elif cls == 2:
+            ndims, width = layout[3], layout[4]
+            index = layout[5 + ndims * width]
+            raise NotImplementedError(
+                f"{name}: chunked data layout version 4 with a "
+                f"{_CHUNK_INDEXES.get(index, f'type {index}')} chunk index (written with "
+                "libver='latest' or 'v110' and later) is not in h5lite, which reads chunks "
+                "indexed by a version-1 B-tree (h5py's default, libver='earliest'); "
+                "read it with h5py or rewrite it with libver='earliest'")
         else:
-            raise NotImplementedError("only contiguous and compact datasets are in h5lite "
-                                      "(no chunks, no compression); read this file with h5py")
+            raise NotImplementedError(f"{name}: data layout class {cls}")
+        if self._filters and self.chunks is None:
+            raise NotImplementedError(f"{name}: a filter on a dataset that is not chunked")
 
     def __len__(self):
         if not self.shape:
             raise TypeError("a scalar dataset has no len()")
         return self.shape[0]
 
-    def _read(self, start: int, count: int) -> np.ndarray:
-        size = self.dtype.itemsize
+    def _chunk_index(self):
+        """[(offsets, stored size, filter mask, address)] of the written
+        chunks in B-tree key order, cached per file. A key holds the size,
+        the mask and one 8-byte offset per axis plus one."""
+        cache = self._file._chunk_indexes
+        if self._btree not in cache:
+            rank = len(self.chunks)
+            entries = (_btree_children(self._file._fh, self._btree, 1, 16 + 8 * rank)
+                       if self._btree != _UNDEF else [])
+            cache[self._btree] = [(struct.unpack_from(f"<{rank}Q", key, 8),
+                                   *struct.unpack_from("<II", key), addr)
+                                  for key, addr in entries]
+        return cache[self._btree]
+
+    def _chunk(self, size: int, mask: int, addr: int) -> np.ndarray:
+        fh = self._file._fh
+        fh.seek(addr)
+        raw = _decode_chunk(fh.read(size), self._filters, mask)
+        n = int(np.prod(self.chunks, dtype=np.int64))
+        return np.frombuffer(raw, self.dtype, count=n).reshape(self.chunks)
+
+    def _rows(self, i0: int, i1: int) -> np.ndarray:
+        """Rows [i0, i1) of axis 0 (the whole of a scalar), as a new array."""
+        rest = self.shape[1:]
+        if not self.shape:
+            i0, i1 = 0, 1
+        count = max(i1 - i0, 0)
+        if self.chunks is not None:
+            out = np.zeros((count,) + rest, self.dtype)
+            c0 = self.chunks[0]
+            for offsets, size, mask, addr in self._chunk_index():
+                lo, hi = max(i0, offsets[0]), min(i1, offsets[0] + c0)
+                if lo >= hi:
+                    continue
+                # the chunk's part inside the dataset, on every other axis
+                inner = tuple(slice(0, min(c, r - o))
+                              for c, r, o in zip(self.chunks[1:], rest, offsets[1:]))
+                where = tuple(slice(o, o + s.stop) for o, s in zip(offsets[1:], inner))
+                chunk = self._chunk(size, mask, addr)
+                out[(slice(lo - i0, hi - i0),) + where] = chunk[
+                    (slice(lo - offsets[0], hi - offsets[0]),) + inner]
+            return out
+        row = int(np.prod(rest, dtype=np.int64))
+        size = self.dtype.itemsize * row
         if self._inline is not None:
-            return np.frombuffer(self._inline[start * size:(start + count) * size],
-                                 self.dtype).copy()
-        if count <= 0 or self._addr == _UNDEF:
-            return np.zeros(max(count, 0), self.dtype)
-        self._fh.seek(self._addr + start * size)
-        return np.frombuffer(self._fh.read(count * size), self.dtype).copy()
+            flat = np.frombuffer(self._inline[i0 * size:i1 * size], self.dtype).copy()
+        elif count == 0 or self._addr == _UNDEF:
+            flat = np.zeros(count * row, self.dtype)
+        else:
+            self._file._fh.seek(self._addr + i0 * size)
+            flat = np.frombuffer(self._file._fh.read(count * size), self.dtype).copy()
+        return flat.reshape((count,) + rest)
 
     def __getitem__(self, index):
         if index == () or index is Ellipsis:
-            out = self._read(0, int(np.prod(self.shape, dtype=np.int64)))
-            return out.reshape(self.shape)[()] if self.shape else out[0]
+            out = self._rows(0, self.shape[0] if self.shape else 1)
+            return out.reshape(self.shape)[()] if self.shape else out.reshape(())[()]
         if not self.shape:
             raise IndexError("a scalar dataset takes only [()]")
-        row = int(np.prod(self.shape[1:], dtype=np.int64))
         lead = index[0] if isinstance(index, tuple) else index
         rest = index[1:] if isinstance(index, tuple) else ()
         if isinstance(lead, slice):
             start, stop, step = lead.indices(self.shape[0])
             if step != 1:
                 raise NotImplementedError("strided reads")
-            out = self._read(start * row, max(stop - start, 0) * row)
-            out = out.reshape((max(stop - start, 0),) + self.shape[1:])
+            out = self._rows(start, stop)
         else:
             i = int(lead) + (self.shape[0] if int(lead) < 0 else 0)
             if not 0 <= i < self.shape[0]:
                 raise IndexError(f"index {lead} out of range for {self.shape[0]}")
-            out = self._read(i * row, row).reshape(self.shape[1:])
+            out = self._rows(i, i + 1)[0]
             out = out[()] if not self.shape[1:] else out
         return out[rest] if rest else out
 
@@ -259,8 +456,8 @@ class Group:
         msgs = _read_header(self._file._fh, addr)
         path = f"{self.name.rstrip('/')}/{name}"
         if _LAYOUT in msgs:
-            return Dataset(self._file._fh, path, msgs)
-        return Group(self._file, path, _links_of(msgs))
+            return Dataset(self._file, path, msgs)
+        return Group(self._file, path, _links_of(self._file._fh, msgs))
 
     def __getitem__(self, path: str):
         node = self
@@ -313,7 +510,11 @@ class Group:
         return w.group(addrs)
 
 
-def _links_of(msgs: Dict[int, list]) -> Dict[str, int]:
+def _links_of(fh, msgs: Dict[int, list]) -> Dict[str, int]:
+    """name -> object header address of a group: its symbol table (the
+    old-style group) or its link messages (compact storage)."""
+    if _SYMBOL_TABLE in msgs:
+        return _symbol_table_links(fh, *struct.unpack_from("<QQ", msgs[_SYMBOL_TABLE][0]))
     links = {}
     for data in msgs.get(_LINK, []):
         flags = data[1]
@@ -349,20 +550,39 @@ class File(Group):
         self.filename = str(path)
         self.mode = mode
         self._fh = None
+        self._chunk_indexes: Dict[int, list] = {}  # B-tree address -> chunk index
         if mode == "r":
             self._fh = open(path, "rb")
-            sb = self._fh.read(_SUPERBLOCK_SIZE)
-            if sb[:8] != _SIGNATURE or sb[8] not in (2, 3) or sb[9:11] != b"\x08\x08":
+            try:
+                root = self._root_header(path)
+                links = _links_of(self._fh, _read_header(self._fh, root))
+            except BaseException:
                 self._fh.close()
-                raise NotImplementedError(f"{path}: not an HDF5 file with a version 2/3 "
-                                          "superblock and 8-byte offsets; open it with h5py")
-            if checksum(sb[:44]) != struct.unpack_from("<I", sb, 44)[0]:
-                self._fh.close()
-                raise OSError(f"{path}: superblock checksum mismatch")
-            root = struct.unpack_from("<Q", sb, 36)[0]
-            super().__init__(self, "/", _links_of(_read_header(self._fh, root)))
+                raise
+            super().__init__(self, "/", links)
         else:
             super().__init__(self, "/")
+
+    def _root_header(self, path) -> int:
+        """The root group's object header address, from a version 0-3
+        superblock with 8-byte offsets and lengths."""
+        sb = self._fh.read(96)
+        version = sb[8] if sb[:8] == _SIGNATURE else None
+        sizes = sb[13:15] if version in (0, 1) else sb[9:11]
+        if version not in (0, 1, 2, 3) or sizes != b"\x08\x08":
+            raise NotImplementedError(f"{path}: not an HDF5 file with a version 0-3 "
+                                      "superblock and 8-byte offsets; open it with h5py")
+        if version in (0, 1):
+            # v1 adds 4 bytes (indexed storage K); then four addresses (base,
+            # free space, end of file, VFD information block), then the root
+            # symbol table entry: link name offset, object header address, ...
+            at = 24 + 4 * version
+            if struct.unpack_from("<Q", sb, at)[0] != 0:
+                raise NotImplementedError(f"{path}: a user block (base address != 0)")
+            return struct.unpack_from("<Q", sb, at + 32 + 8)[0]
+        if checksum(sb[:44]) != struct.unpack_from("<I", sb, 44)[0]:
+            raise OSError(f"{path}: superblock checksum mismatch")
+        return struct.unpack_from("<Q", sb, 36)[0]
 
     def close(self) -> None:
         if self.mode == "w" and self._fh is None:

@@ -67,6 +67,19 @@ def _kind(name: str) -> str:
     raise ValueError(f"unknown representation: {name}")
 
 
+_KIND_CHANNELS = {"voxel_grid": 12, "ergo12": 12, "event_stack": 12, "histogram": 2, "tore": 12,
+                  "time_surface": 12}
+
+
+def representation_channels(name: str) -> int:
+    """Channels of a representation name, by the name rules of
+    :func:`batched_representation` (the reference's ``ToImage`` is the
+    2-channel histogram)."""
+    if name in REPRESENTATION_CHANNELS:
+        return REPRESENTATION_CHANNELS[name]
+    return _KIND_CHANNELS[_kind(name)]
+
+
 _PER_SAMPLE = {
     "voxel_grid": lambda b, h, w: voxel_grid(b, h, w, n_time_bins=12),
     "ergo12": ergo12,

@@ -10,6 +10,9 @@ of ``MultiSteps``), the EMA (variables and update count), the step count and
 the epoch, like the reference's {model, ema, updates, optimizer, epoch}
 dict (engine.py:291-297). :func:`strip_optimizer` rewrites one to the EMA
 variables only, ``{"variables"}``, for deployment (checkpoint.py:50-64).
+A model without an EMA (the classifier, ``train/classifier.py``) saves
+``{"model", "optimizer", "step", "epoch", "extra"}`` through
+:func:`save_model_checkpoint`.
 """
 from __future__ import annotations
 
@@ -63,6 +66,23 @@ def restore_train_state(path, state: TrainState) -> Tuple[TrainState, int]:
     state.ema = EMAState(state.ema.variables, int(ckpt["ema"]["updates"]))
     state.step = int(ckpt["step"])
     return state, int(ckpt["epoch"]) + 1
+
+
+def save_model_checkpoint(path, model: nn.Module, optimizer: torch.optim.Optimizer, step: int,
+                          epoch: int, extra: Optional[dict] = None) -> None:
+    _save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": step,
+           "epoch": epoch, "extra": extra or {}}, path)
+
+
+def restore_model_checkpoint(path, model: nn.Module,
+                             optimizer: torch.optim.Optimizer) -> Tuple[int, int]:
+    """Load a :func:`save_model_checkpoint` file into ``model`` and
+    ``optimizer`` in place; returns ``(step, start_epoch)``, the epoch after
+    the saved one."""
+    ckpt = load_checkpoint(path, map_location=next(model.parameters()).device)
+    model.load_state_dict(ckpt["model"], strict=True)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    return int(ckpt["step"]), int(ckpt["epoch"]) + 1
 
 
 def model_variables(ckpt: dict) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,5 @@
-"""Carry detector weights between the JAX package and this port:
+"""Carry weights between the JAX package and this port (the detector,
+``models/resnet.py``'s classifier):
 ``flax_to_torch(variables) -> state_dict`` and, for comparing tensors leaf
 by leaf (weights, gradients, EMA), :func:`to_flax_leaves`, its inverse.
 
@@ -8,13 +9,14 @@ conversion is a flatten (``a/b/c`` -> ``a.b.c``) plus the layout rules, the
 inverse of the JAX package's ``utils/torch_convert.py``:
 
 - Conv kernel HWIO -> OIHW
+- Dense kernel (in, out) -> Linear weight (out, in)
 - ConvTranspose kernel (kh, kw, I, O) -> (I, O, kh, kw) with a spatial flip
   (Flax applies the kernel unflipped, torch's transpose conv flipped)
 - BatchNorm scale/bias -> weight/bias; batch_stats mean/var ->
   running_mean/running_var, plus a zero ``num_batches_tracked``
 - everything else (conv biases, BottleRep ``alpha`` (1,)) as is
 
-The result loads with ``Detector.load_state_dict(sd, strict=True)``.
+The result loads with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations
 
@@ -37,9 +39,11 @@ def flax_to_torch(variables: Dict) -> Dict[str, torch.Tensor]:
     for path, arr in _flatten(variables["params"]):
         mod, leaf = list(path[:-1]), path[-1]
         if leaf == "kernel":
-            if arr.ndim != 4:
+            if arr.ndim not in (2, 4):
                 raise ValueError(f"unexpected {arr.ndim}-d kernel at {'/'.join(path)}")
-            if mod[-2:] == ["upsample", "upsample"]:  # Transpose/ConvTranspose
+            if arr.ndim == 2:  # Dense
+                arr = arr.T
+            elif mod[-2:] == ["upsample", "upsample"]:  # Transpose/ConvTranspose
                 arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
             else:
                 arr = arr.transpose(3, 2, 0, 1)
@@ -76,6 +80,8 @@ def to_flax_leaves(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
             else:
                 arr = arr.transpose(2, 3, 1, 0)
             leaf = "kernel"
+        elif leaf == "weight" and arr.ndim == 2:  # Linear
+            arr, leaf = arr.T, "kernel"
         elif leaf == "weight":  # the only 1-d weights are BatchNorm scales
             leaf = "scale"
         out["/".join([coll, *mod, leaf])] = np.ascontiguousarray(arr)

@@ -16,14 +16,15 @@ from event_representation_study_tpu_torch.ops import fused_scatter, roll
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
-# the representation library, the GWD ranking and the channel search,
-# imported in the probe too
+# the representation library, the GWD ranking, the channel search, the
+# event windows and the N-ImageNet classification, imported in the probe too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
                "cli.gwd", "search.benchmarks", "search.chimera", "search.db", "search.native",
                "search.kernels", "search.bnn", "search.acquisition", "search.gryffin",
-               "search.optimize", "search.mixed", "cli.bo")
+               "search.optimize", "search.mixed", "cli.bo", "events.windows", "data.nimagenet",
+               "data.nimagenet_loaders", "models.resnet", "train.classifier", "cli.classify")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -80,6 +81,14 @@ def test_trainer_defaults_to_cuda(no_cuda, tmp_path):
         Trainer(load_config(REPO / "configs/gen1_optimized.py"), tmp_path)
 
 
+def test_classifier_trainer_defaults_to_cuda(no_cuda):
+    from event_representation_study_tpu_torch.models.resnet import EventResNet
+    from event_representation_study_tpu_torch.train.classifier import ClassifierTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClassifierTrainer(EventResNet(3, "ResNet18"), "OptimizedRepresentation", 3)
+
+
 def test_evaler_defaults_to_cuda(no_cuda, tmp_path):
     from event_representation_study_tpu_torch.train.evaler import Evaler
 
@@ -87,13 +96,18 @@ def test_evaler_defaults_to_cuda(no_cuda, tmp_path):
         Evaler(torch.nn.Identity(), None, 2, "OptimizedRepresentation")
 
 
-@pytest.mark.parametrize("cli", ["train", "eval", "gwd"])
+@pytest.mark.parametrize("cli", ["train", "eval", "gwd", "classify"])
 def test_cli_defaults_to_cuda(no_cuda, cli, tmp_path):
     import importlib
 
     main = importlib.import_module(f"event_representation_study_tpu_torch.cli.{cli}").main
+    if cli == "classify":
+        (tmp_path / "list.txt").write_text("")
+        args = ["--train-list", str(tmp_path / "list.txt"), "--val-list", str(tmp_path / "list.txt")]
+    else:
+        args = ["--data-path", str(tmp_path)]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        main(["--data-path", str(tmp_path)])
+        main(args)
 
 
 @pytest.mark.parametrize("metric", ["otmi", "gw_distance"])
