@@ -101,6 +101,29 @@ Phases, one printed line each:
 19. kernel_K1_nimagenet: K1 at the classification shape (B 64, N 30,000,
    S 50,176, Ks 18, Km 3) against its plain version, timed beside its
    bound and the library call.
+20. zoo: each other detector family of ``configs/`` at full width and depth
+   (``gen1_efficientrep``: RepVGG EfficientRep + CSPRepBiFPANNeck, 151.0M;
+   ``gen1_lite``: 1.3M; ``gen1_resnet50``: 44.6M; ``gen1_swinvit``: the
+   Swin-V2-L, 216.4M; the last two at 576²) serves 3 requests of 8 windows
+   through ``make_server`` (K1 once each) and takes a warm-up and 3 timed
+   train steps through ``make_train_step`` with the separable warp (K1
+   once, K3 twice a step); parameters, request and step medians, peak
+   memory and launches per config. K3 at each step shape that the paper
+   step (phase 7) does not give (576²) is held against its plain version
+   and timed on the arguments of that config's warm-up step
+   (``kernel_K3_<config>``).
+21. zoo_half: ``cli/eval.py --task speed`` of the paper detector on a
+   synthetic validation split of 64 windows, float32 and ``--half`` (bf16
+   compute), twice each: ms per image, and every convolution's output
+   dtype (bf16 under ``--half``); the loader's batch assembly and the eval
+   step with NMS apart; the detector's forward alone both ways, in NCHW and
+   in the eval step's layout, with profiler traces (``zoo_half_profile``);
+   one batch through both models from the same weights: the largest score
+   difference (above 0) and the mean IoU of the float32 top-100 boxes
+   against the bf16 boxes.
+22. zoo_reference: a shrunk copy of each family of phase 20 serves the
+   reference phase's windows on the card and on the CPU from the same
+   weights.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -468,10 +491,11 @@ def loss_config(cfg):
                       warmup_epoch=hd["atss_warmup_epoch"])
 
 
-def train_setup(dev, n_batches: int):
-    """The full-width detector, its train state and step (separable warp),
-    and ``n_batches`` batches of B windows with the paper's strong
-    augmentation planned for each. Returns (state, step, batches, info)."""
+def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = IMG):
+    """The full-width detector of ``configs/<config>.py``, its train state
+    and step (separable warp) at ``img``, and ``n_batches`` batches of B
+    windows with the config's strong augmentation planned for each.
+    Returns (state, step, batches, info)."""
     from event_representation_study_tpu_torch.models import build_model
     from event_representation_study_tpu_torch.ops.warp import separable_hyp_eligible
     from event_representation_study_tpu_torch.parallel.train_step import (
@@ -480,9 +504,9 @@ def train_setup(dev, n_batches: int):
         accumulation_steps, build_optimizer, with_accumulation)
     from event_representation_study_tpu_torch.utils.config import load_config
 
-    cfg = load_config("configs/gen1_optimized.py")
+    cfg = load_config(f"configs/{config}.py")
     hyp = dict(cfg["data_aug"])
-    require(separable_hyp_eligible(hyp, IMG), "the paper recipe must fit the separable warp")
+    require(separable_hyp_eligible(hyp, img), f"{config}: the recipe must fit the separable warp")
     t0 = time.perf_counter()
     model = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
     # random box-pred convs: with Flax's zero init nothing upstream of them
@@ -496,12 +520,12 @@ def train_setup(dev, n_batches: int):
     # its learning rate (at update 0 the weight and BN groups have none)
     sgd.count = max(round(sgd.cfg.warmup_epochs * sgd.cfg.steps_per_epoch), 1000)
     state = init_train_state(model, with_accumulation(sgd, k_acc))
-    step = make_train_step(loss_config(cfg), "OptimizedRepresentation", (H, W), IMG,
+    step = make_train_step(loss_config(cfg), "OptimizedRepresentation", (H, W), img,
                            warp_impl="separable", device=dev)
     info = {"build_s": time.perf_counter() - t0, "accumulate": k_acc,
             "params": sum(p.numel() for p in model.parameters())}
     rng = np.random.default_rng(0)
-    batches = [make_batch(fake_batch(1000 + 10 * i), fake_labels(rng), hyp, rng)
+    batches = [make_batch(fake_batch(1000 + 10 * i), fake_labels(rng, img=img), hyp, rng, img)
                for i in range(n_batches)]
     return state, step, batches, info
 
@@ -595,8 +619,13 @@ def train_phase(dev):
     return launches, k3_args
 
 
-def check_k3(k3_args):
-    """K3 against its plain version at the train step's pass V and pass H
+def roll_key(k3_args):
+    """The shapes of one step's two K3 calls: (x's shape, w_out) each."""
+    return tuple((tuple(x.shape), w_out) for x, _, w_out in k3_args)
+
+
+def check_k3(k3_args, label: str = "kernel_K3"):
+    """K3 against its plain version at one train step's pass V and pass H
     shapes and at edge cases; times. Returns the kernels-line entry without
     ``launches`` (ms, bound and yardsticks summed over the two passes of one
     step)."""
@@ -647,7 +676,7 @@ def check_k3(k3_args):
             checks[f"width.{dtype}.C{c}"] = torch.equal(roll.roll_rows(xs, ss, 40),
                                                         roll.roll_rows_plain(xs, ss, 40))
     del flush
-    say("kernel_K3", passes=passes, **checks, max_abs_err=max(errs),
+    say(label, passes=passes, **checks, max_abs_err=max(errs),
         tolerance="exact (data movement)",
         library="torch.gather along W into a preallocated output, index precomputed")
     require(all(checks.values()), f"K3 disagrees with its plain version: {checks}")
@@ -821,12 +850,12 @@ def event_mosaic_phase(dev):
 TRAINER_EPOCHS, TRAINER_BOXES = 2, 16
 
 
-def _trainer_fixture(root):
+def _trainer_fixture(root, val_boxes: int = TRAINER_BOXES, train: bool = True):
     """Synthetic Gen1 splits from the port's writer: training 2 recordings x
-    16 boxes, validation 1 x 16, 200,000 events a recording; Blosc-ZSTD
-    chunks when this process can encode them (a Blosc codec, and h5py: the
-    HDF5 subset used without h5py, ``events/h5lite.py``, reads chunks but
-    writes none).
+    16 boxes (unless ``train`` is false), validation 1 x ``val_boxes``,
+    200,000 events a recording for each 16 boxes; Blosc-ZSTD chunks when
+    this process can encode them (a Blosc codec, and h5py: the HDF5 subset
+    used without h5py, ``events/h5lite.py``, reads chunks but writes none).
     Returns (what wrote it, seconds)."""
     from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
     from event_representation_study_tpu_torch.events import blosc_codec, h5lite
@@ -834,9 +863,11 @@ def _trainer_fixture(root):
     hdf5 = "h5lite" if blosc_codec.h5py is h5lite else "h5py"
     blosc = blosc_codec.available() and hdf5 == "h5py"
     t0 = time.perf_counter()
-    for split, files, seed in (("training.h5", 2, 1), ("validation.h5", 1, 2)):
-        write_gen1_fixture(root / split, num_files=files, boxes_per_file=TRAINER_BOXES,
-                           events_per_file=200_000, seed=seed, blosc=blosc)
+    splits = [("training.h5", 2, 1, TRAINER_BOXES)] if train else []
+    for split, files, seed, boxes in splits + [("validation.h5", 1, 2, val_boxes)]:
+        write_gen1_fixture(root / split, num_files=files, boxes_per_file=boxes,
+                           events_per_file=200_000 * boxes // TRAINER_BOXES, seed=seed,
+                           blosc=blosc)
     return {"hdf5": hdf5, "blosc": blosc}, time.perf_counter() - t0
 
 
@@ -1871,6 +1902,300 @@ def classify_reference(dev):
                 f"classifier step card vs CPU ({opt}): {e}")
 
 
+ZOO_CONFIGS = ("gen1_efficientrep", "gen1_lite", "gen1_resnet50", "gen1_swinvit")
+ZOO_TRAIN_STEPS = 3
+
+
+def zoo_phase(dev, checked):
+    """Each detector family of ``configs/`` beside the paper's at full width
+    and depth, seeded random weights, float32: 3 requests of B windows
+    through ``make_server`` at the config's ``img_size`` (K1 once each),
+    then a warm-up and 3 timed train steps through ``make_train_step``
+    with the separable warp (K1 once, K3 twice a step). ``checked`` holds
+    the shapes of K3's two calls (:func:`roll_key`) already held against
+    the plain version; at every other shape, K3 is held and timed on the
+    arguments that the warm-up step gave it (:func:`check_k3`). Returns the
+    K1 launches of the timed requests and steps, and for each K3 shape its
+    timed launches, the first config and image size that gave it and
+    ``check_k3``'s entry (None for a shape in ``checked``)."""
+    from event_representation_study_tpu_torch.cli.infer import make_server
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    k1, rolls = 0, {}
+    requests = [fake_batch(300 + 10 * r) for r in range(REQUESTS + 1)]
+    for name in ZOO_CONFIGS:
+        cfg = load_config(f"configs/{name}.py")
+        img = cfg["data"]["img_size"]
+        t0 = time.perf_counter()
+        serve = make_server(cfg, "OptimizedRepresentation", H, W, img, 0.03, device="cuda")
+        randomize_preds_(serve.model, torch.Generator(device=dev).manual_seed(1))
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in serve.model.parameters())
+        serve(requests[-1])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        serve_ms, counts = [], []
+        for blk in requests[:REQUESTS]:
+            t = time.perf_counter()
+            dets, n = serve(blk)
+            counts.append(n.tolist())
+            serve_ms.append((time.perf_counter() - t) * 1e3)
+        serve_k1 = fs.LAUNCHES[fs.K1]
+        serve_peak = torch.cuda.max_memory_allocated()
+        require(serve_k1 == REQUESTS, f"{name}: K1 launches {serve_k1} for {REQUESTS} requests")
+        require(dets.shape == (B, 300, 6) and dets.dtype == torch.float32
+                and bool(torch.isfinite(dets).all()), f"{name}: detections")
+        require(all(0 < c <= 300 for cs in counts for c in cs), f"{name}: counts {counts}")
+        del serve, dets
+        torch.cuda.empty_cache()
+
+        state, step, batches, _ = train_setup(dev, ZOO_TRAIN_STEPS + 1, name, img)
+        model = state.model
+        t = time.perf_counter()
+        (state, parts), k3_args = capture_roll_inputs(lambda: step(state, batches[0], 5))
+        warm = {k: v.item() for k, v in parts.items()}
+        warm_ms = (time.perf_counter() - t) * 1e3
+        require(len(k3_args) == 2, f"{name}: the separable warp rolled {len(k3_args)} times")
+        key = roll_key(k3_args)
+        if key not in rolls:
+            rolls[key] = {"config": name, "img": img, "launches": 0,
+                          "check": None if key in checked
+                          else check_k3(k3_args, f"kernel_K3_{name}")}
+        del k3_args
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        roll.reset_launches()
+        step_ms, per_step = [], []
+        for batch in batches[1:]:
+            t = time.perf_counter()
+            state, parts = step(state, batch, 5)
+            per_step.append({k: v.item() for k, v in parts.items()})  # waits
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        train_k1, train_k3 = fs.LAUNCHES[fs.K1], roll.LAUNCHES[roll.K3]
+        train_peak = torch.cuda.max_memory_allocated()
+        changed = sum(not torch.equal(p0[n], p) for n, p in model.named_parameters())
+        say("zoo", config=name, params=n_params, img=img, batch=B, events_per_window=N,
+            build_s=build_s, serve_ms=serve_ms, serve_median_ms=statistics.median(serve_ms),
+            detections_per_image=counts, serve_peak_mem_bytes=serve_peak,
+            warmup_step_ms=warm_ms, warmup_step=warm, step_ms=step_ms,
+            step_median_ms=statistics.median(step_ms), steps=per_step,
+            train_peak_mem_bytes=train_peak,
+            launches={"serve_K1": serve_k1, "train_K1": train_k1, "train_K3": train_k3},
+            roll_shapes=[list(x) for x, _ in key],
+            params_changed=changed, params_total=len(p0), tf32=tf32_state())
+        require(train_k1 == ZOO_TRAIN_STEPS and train_k3 == 2 * ZOO_TRAIN_STEPS,
+                f"{name}: K1 {train_k1}, K3 {train_k3} for {ZOO_TRAIN_STEPS} steps")
+        require(all(math.isfinite(v) for st in per_step for v in st.values()), f"{name}: losses")
+        require(all(st["num_pos"] > 0 for st in per_step), f"{name}: positive anchors")
+        require(changed >= 0.9 * len(p0), f"{name}: {len(p0) - changed} parameters did not change")
+        k1 += serve_k1 + train_k1
+        rolls[key]["launches"] += train_k3
+        del state, model, step, batches, p0
+        torch.cuda.empty_cache()
+    return k1, rolls
+
+
+def _matched_iou(a, b):
+    """IoU of aligned (..., 4) xywh boxes."""
+    from event_representation_study_tpu_torch.ops.boxes import iou_loss, xywh2xyxy
+
+    return iou_loss(xywh2xyxy(a), xywh2xyxy(b), "iou")
+
+
+ZOO_HALF_WINDOWS = 64  # the speed runs' validation split: 8 batches of B
+KERNEL_CLASSES = (("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
+                  ("conv_gemm", ("conv", "gemm", "xmma", "cutlass", "implicit")),
+                  ("norm", ("bn_", "batch_norm", "norm")),
+                  ("elementwise", ("elementwise",)))
+
+
+def conv_output_dtypes(fn):
+    """Run ``fn``; return its result and the dtypes of the outputs of every
+    ``nn.Conv2d`` that ran in it, with their counts."""
+    seen = {}
+
+    def hook(module, args, out):
+        if isinstance(module, torch.nn.Conv2d):
+            seen[str(out.dtype)] = seen.get(str(out.dtype), 0) + 1
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    try:
+        out = fn()
+    finally:
+        handle.remove()
+    return out, seen
+
+
+def kernel_profile(fn):
+    """One call of ``fn`` (after one unprofiled) under torch.profiler: the
+    device time of its kernels by class (KERNEL_CLASSES, the first whose
+    key is in the lower-cased name; the rest "other") and the 12 kernels
+    that took the most, with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == cuda:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    classes = dict.fromkeys([c for c, _ in KERNEL_CLASSES] + ["other"], 0.0)
+    for name, (us, _) in by_name.items():
+        low = name.lower()
+        classes[next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)),
+                     "other")] += us / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"device_ms": sum(classes.values()), "by_class_ms": classes,
+            "top": [{"name": name[:160], "ms": us / 1e3, "count": n}
+                    for name, (us, n) in top]}
+
+
+def zoo_half_phase(dev):
+    """``cli/eval.py --task speed`` of the full-width paper detector on a
+    synthetic validation split of ZOO_HALF_WINDOWS windows, float32 and
+    ``--half`` (bf16 compute over float32 weights), twice each: ms per image
+    and the dtypes its convolutions gave. Where an Evaler batch's time
+    goes, on the same split: the loader's host batch assembly alone, and
+    the eval step with NMS alone on the loaded batches, both ways. The
+    detector's forward alone on B random 640² inputs in NCHW and in the
+    layout the eval step feeds it (a permuted NHWC image), both ways, with
+    a profiler trace of the bf16 forward in each layout and of the float32
+    one. Then one batch through both models from the same weights: the
+    largest score difference (above 0: the bf16 model did round) and the
+    mean IoU of the float32 top-100 boxes against the bf16 boxes at the
+    same anchors. Returns the K1 launches."""
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import eval as eval_cli
+    from event_representation_study_tpu_torch.data.gen1 import Gen1H5
+    from event_representation_study_tpu_torch.data.loader import EventBatchLoader
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops.nms import non_max_suppression
+    from event_representation_study_tpu_torch.parallel.train_step import make_eval_step
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    speed, conv_dtypes, k1 = {}, {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        _trainer_fixture(pathlib.Path(tmp), val_boxes=ZOO_HALF_WINDOWS, train=False)
+        args = ["--conf", "configs/gen1_optimized.py", "--data-path", tmp, "--task", "speed",
+                "--batch-size", str(B), "--img-size", str(IMG), "--num-events", str(N)]
+        for label, extra in (("float32", []), ("bfloat16", ["--half"]), ("float32_again", []),
+                             ("bfloat16_again", ["--half"])):
+            fs.reset_launches()
+            stats, conv_dtypes[label] = conv_output_dtypes(lambda: eval_cli.main(args + extra))
+            k1 += fs.LAUNCHES[fs.K1]
+            speed[label] = {k: stats[k] for k in ("speed_pre_ms", "speed_infer_nms_ms",
+                                                  "speed_post_ms")}
+            speed[label]["ms_per_image"] = sum(speed[label].values())
+        cfg = load_config("configs/gen1_optimized.py")
+        ds = Gen1H5(tmp, task="val", num_events=N)
+        loader_ms, batches = [], []
+        it = iter(EventBatchLoader(ds, B, img_size=IMG, shuffle=False))
+        while True:
+            t = time.perf_counter()
+            item = next(it, None)
+            if item is None:
+                break
+            loader_ms.append((time.perf_counter() - t) * 1e3)
+            batches.append(item[0])
+        ds.h5.close()
+    f32 = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    randomize_preds_(f32, torch.Generator(device=dev).manual_seed(1))
+    bf16 = build_model(cfg, 2, device=dev, dtype=torch.bfloat16)
+    bf16.load_state_dict(f32.state_dict())
+    preds, step_ms = {}, {}
+    for label, model in (("float32", f32), ("bfloat16", bf16)):
+        fs.reset_launches()
+        step = make_eval_step(model, "OptimizedRepresentation", (H, W), IMG, device=dev)
+        preds[label] = step(None, batches[0])
+        step_ms[label] = []
+        for batch in batches:
+            t = time.perf_counter()
+            with torch.inference_mode():
+                _, n = non_max_suppression(step(None, batch), conf_thres=0.03, iou_thres=0.65)
+            n.cpu()  # waits
+            step_ms[label].append((time.perf_counter() - t) * 1e3)
+        k1 += fs.LAUNCHES[fs.K1]
+    x = torch.rand((B, 12, IMG, IMG), generator=torch.Generator(device=dev).manual_seed(2),
+                   device=dev)
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)  # as the eval step feeds
+    with torch.inference_mode():  # the detector alone, the layer bf16 changes
+        detector_ms = {f"{label}_{layout}": cuda_ms(lambda: model.eval()(xa), iters=10)
+                       for label, model in (("float32", f32), ("bfloat16", bf16))
+                       for layout, xa in (("nchw", x), ("nhwc", x_nhwc))}
+        profiles = {f"{label}_{layout}": kernel_profile(lambda: model(xa))
+                    for label, model, layout, xa in (("bfloat16", bf16, "nchw", x),
+                                                     ("bfloat16", bf16, "nhwc", x_nhwc),
+                                                     ("float32", f32, "nchw", x))}
+    p32, p16 = preds["float32"], preds["bfloat16"]
+    score_diff = (p16[..., 5:] - p32[..., 5:]).abs().max().item()
+    top = p32[..., 5:].amax(-1).topk(100, dim=1).indices  # (B, 100)
+    pick = top[..., None].expand(-1, -1, 4)
+    iou = _matched_iou(p32[..., :4].gather(1, pick), p16[..., :4].gather(1, pick))
+    box_err = (p16[..., :4] - p32[..., :4]).abs()
+    say("zoo_half", windows=ZOO_HALF_WINDOWS, batches=len(batches),
+        speed_ms_per_image=speed, conv_output_dtypes=conv_dtypes,
+        loader_ms_per_batch=loader_ms, loader_median_ms=statistics.median(loader_ms),
+        eval_step_nms_ms_per_batch=step_ms,
+        eval_step_nms_median_ms={k: statistics.median(v) for k, v in step_ms.items()},
+        detector_ms=detector_ms, dtype_of_preds=str(p16.dtype),
+        max_score_diff=score_diff, mean_iou_top100=iou.mean().item(),
+        min_iou_top100=iou.min().item(), box_abs_err_px={"mean": box_err.mean().item(),
+                                                         "max": box_err.max().item()},
+        tolerance="bf16 vs f32 on one batch: 0 < scores <= 0.05, mean IoU of the top-100 "
+                  ">= 0.9; every convolution of --half gives bf16, of float32 float32",
+        tf32=tf32_state())
+    say("zoo_half_profile", **profiles)
+    require(all(set(d) == {"torch.bfloat16" if label.startswith("bfloat16") else "torch.float32"}
+                for label, d in conv_dtypes.items()), f"conv output dtypes {conv_dtypes}")
+    require(p16.dtype == torch.float32 and bool(torch.isfinite(p16).all()), "bf16 preds")
+    require(0 < score_diff <= 0.05 and iou.mean().item() >= 0.9,
+            f"bf16 vs f32: scores {score_diff}, IoU {iou.mean().item()}")
+    return k1
+
+
+def zoo_reference(dev):
+    """A shrunk copy of each new family (depth 0.2, width 0.125; the Lite
+    family at full width, whose squeeze-excite needs >= 4 channels; the
+    Swin backbone at its fixed preset) serves the same windows on the card
+    and on the CPU from the same weights, at 320²."""
+    from event_representation_study_tpu_torch.cli.infer import make_server
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    ref_blocks = fake_batch(7, n_windows=2, n_events=5000)
+    errs = {}
+    for name in ZOO_CONFIGS:
+        small = load_config(f"configs/{name}.py", overrides=[
+            "model.depth_multiple=0.2",
+            f"model.width_multiple={1.0 if name == 'gen1_lite' else 0.125}"])
+        servers = {d: make_server(small, "OptimizedRepresentation", H, W, 320, 0.03, device=d)
+                   for d in ("cpu", "cuda")}
+        randomize_preds_(servers["cpu"].model, torch.Generator().manual_seed(2))
+        servers["cuda"].model.load_state_dict(servers["cpu"].model.state_dict())
+        (r_g, p_g), (r_c, p_c) = ([a.cpu() for a in servers[d].run(ref_blocks)[:2]]
+                                  for d in ("cuda", "cpu"))
+        errs[name] = {"rep": (r_g - r_c).abs().max().item(),
+                      "boxes": (p_g[..., :4] - p_c[..., :4]).abs().max().item(),
+                      "scores": (p_g[..., 4:] - p_c[..., 4:]).abs().max().item()}
+        del servers
+    say("zoo_reference", max_abs_err=errs,
+        tolerance="rep 0.06 (x255), boxes 1e-2 px, scores 1e-4", tf32=tf32_state())
+    require(all(e["rep"] <= 0.06 and e["boxes"] <= 1e-2 and e["scores"] <= 1e-4
+                for e in errs.values()), f"zoo card vs CPU: {errs}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -2025,6 +2350,8 @@ def main() -> int:
     # 7-10. training
     train_launches, k3_args = train_phase(dev)
     k3 = check_k3(k3_args)
+    train_rolls = roll_key(k3_args)
+    del k3_args
     warp_phase(dev)
     train_reference(dev)
     # 11-12. event-space augmentation, and training through the CLIs
@@ -2049,6 +2376,10 @@ def main() -> int:
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     k1_cls = check_kernel("kernel_K1_nimagenet", k1_cls_args, cnt_cols, flush)
     del flush, k1_cls_args
+    # 20-22. the detector zoo, bf16 evaluation, the shrunk families card vs CPU
+    zoo_k1, zoo_rolls = zoo_phase(dev, {train_rolls})
+    half_k1 = zoo_half_phase(dev)
+    zoo_reference(dev)
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
@@ -2056,7 +2387,8 @@ def main() -> int:
                               "representations": rep_k1, "gwd": gwd_launches[fs.K1],
                               "search": search_launches[fs.K1],
                               "gen1_published_format": published_launches,
-                              "classify": classify_launches}
+                              "classify": classify_launches, "zoo": zoo_k1,
+                              "zoo_half": half_k1}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
                               "search": search_launches[fs.K2]}
@@ -2078,8 +2410,23 @@ def main() -> int:
                 **{k: k1_cls[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                           "max_abs_err")}, "launches": classify_launches}
         entry["max_abs_err"] = max(v["max_abs_err"] for v in entry["by_shape"].values())
-    k3["launches"] = train_launches["roll_rows"]
-    k3["launches_by_path"] = {"train": train_launches["roll_rows"]}
+    k3["launches_by_path"] = {"train": train_launches["roll_rows"],
+                              "zoo": sum(r["launches"] for r in zoo_rolls.values())}
+    k3["launches"] = sum(k3["launches_by_path"].values())
+    # the main figures stay those of the paper step (640²); each other shape
+    # of the zoo's steps beside them, held in zoo_phase
+    k3["by_shape"] = {"train_640": {
+        **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "max_abs_err")},
+        "launches": train_launches["roll_rows"] + zoo_rolls.get(train_rolls, {}).get(
+            "launches", 0)}}
+    for r in zoo_rolls.values():
+        if r["check"] is not None:
+            k3["by_shape"][f"{r['config']}_{r['img']}"] = {
+                **{k: r["check"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "max_abs_err", "per_launch")},
+                "launches": r["launches"]}
+    k3["max_abs_err"] = max(v["max_abs_err"] for v in k3["by_shape"].values())
     print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

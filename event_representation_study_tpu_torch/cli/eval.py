@@ -8,7 +8,9 @@ checkpoint, with optional per-class PR/F1/confusion reporting
         --checkpoint runs/train/exp/best_ckpt --task val
 
 Runs on ``--device cuda`` (the default; it raises without CUDA) or
-``--device cpu``.
+``--device cpu``. ``--half`` runs the detector in bfloat16 (autocast over
+float32 weights, ``models/yolo.py``); the representation, the letterbox
+and what reaches NMS stay float32.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ def get_args_parser():
     p.add_argument("--task", choices=["val", "test", "speed"], default="val")
     p.add_argument("--representation", type=str, default=None)
     p.add_argument("--batch-size", type=int, default=32)
-    p.add_argument("--img-size", type=int, default=640)
+    p.add_argument("--img-size", type=int, default=None,
+                   help="default: the config's data.img_size")
     p.add_argument("--num-events", type=int, default=None)
     p.add_argument("--conf-thres", type=float, default=0.03)
     p.add_argument("--iou-thres", type=float, default=0.65)
@@ -34,7 +37,7 @@ def get_args_parser():
     p.add_argument("--save-predictions", type=str, default=None,
                    help="write COCO-format predictions JSON (evaler.py:545-568)")
     p.add_argument("--half", action="store_true",
-                   help="bf16 model compute (not ported: ROADMAP M20)")
+                   help="bf16 model compute over float32 weights")
     p.add_argument("--override", nargs="*", default=[])
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
@@ -43,8 +46,6 @@ def get_args_parser():
 
 def main(args=None):
     args = get_args_parser().parse_args(args)
-    if args.half:
-        raise NotImplementedError("--half (bf16 compute) is not ported (ROADMAP M20)")
     import torch
 
     from .. import resolve_device
@@ -64,15 +65,17 @@ def main(args=None):
     rep = data.get("representation", "OptimizedRepresentation")
     nc = data.get("num_classes", 2)
     ne = args.num_events or data.get("num_events", 50000)
+    img_size = args.img_size or data.get("img_size", 640)
     ds = Gen1H5(args.data_path, task="test" if args.task == "test" else "val", num_events=ne)
-    loader = EventBatchLoader(ds, args.batch_size, img_size=args.img_size, shuffle=False,
+    loader = EventBatchLoader(ds, args.batch_size, img_size=img_size, shuffle=False,
                               drop_last=False)
     model = build_model(cfg, num_classes=nc, num_channels=REPRESENTATION_CHANNELS.get(rep, 12),
-                        device=device, generator=torch.Generator(device=device).manual_seed(0))
+                        device=device, generator=torch.Generator(device=device).manual_seed(0),
+                        dtype=torch.bfloat16 if args.half else torch.float32)
     if args.checkpoint:
         load_model_variables(model, model_variables(load_checkpoint(args.checkpoint, device)))
 
-    evaler = Evaler(model, loader, nc, rep, img_size=args.img_size,
+    evaler = Evaler(model, loader, nc, rep, img_size=img_size,
                     conf_thres=args.conf_thres, iou_thres=args.iou_thres, device=device)
     stats = evaler.run(None, do_pr_metric=args.do_pr_metric, speed_only=args.task == "speed",
                        predictions_json=args.save_predictions)

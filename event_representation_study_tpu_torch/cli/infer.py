@@ -79,7 +79,8 @@ def main(args=None):
                         "seeded random weights if omitted")
     p.add_argument("--conf", type=str, default="configs/gen1_optimized.py")
     p.add_argument("--representation", type=str, default="OptimizedRepresentation")
-    p.add_argument("--img-size", type=int, default=640)
+    p.add_argument("--img-size", type=int, default=None,
+                   help="default: the config's data.img_size")
     p.add_argument("--num-events", type=int, default=50000)
     p.add_argument("--conf-thres", type=float, default=0.03)
     p.add_argument("--device", type=str, default="cuda")
@@ -92,7 +93,8 @@ def main(args=None):
     ev = ev[-args.num_events:]
     blocks = stack_blocks([from_structured(ev, args.num_events)])
     cfg = load_config(args.conf, overrides=args.override)
-    serve = make_server(cfg, args.representation, H, W, args.img_size,
+    img_size = args.img_size or cfg.get("data", {}).get("img_size", 640)
+    serve = make_server(cfg, args.representation, H, W, img_size,
                         args.conf_thres, device=args.device)
     if args.checkpoint:  # a train checkpoint's EMA weights, or a stripped one's
         load_model_variables(serve.model, model_variables(
@@ -100,7 +102,7 @@ def main(args=None):
     dets, n = serve(blocks)
     dets = dets[0, : int(n[0])].cpu().clone()  # a normal tensor, writable here
     if len(dets):
-        dets[:, :4] = scale_coords_back(dets[:, :4], args.img_size, H, W)
+        dets[:, :4] = scale_coords_back(dets[:, :4], img_size, H, W)
     print(f"{len(dets)} detections")
     for d in dets.tolist():
         print(f"  cls={int(d[5])} conf={d[4]:.3f} box=({d[0]:.0f},{d[1]:.0f},{d[2]:.0f},{d[3]:.0f})")

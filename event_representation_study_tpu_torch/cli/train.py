@@ -28,7 +28,8 @@ def get_args_parser():
                    help="override the config's representation name")
     p.add_argument("--batch-size", type=int, default=32)
     p.add_argument("--epochs", type=int, default=100)
-    p.add_argument("--img-size", type=int, default=640)
+    p.add_argument("--img-size", type=int, default=None,
+                   help="default: the config's data.img_size")
     p.add_argument("--num-events", type=int, default=None)
     p.add_argument("--output-dir", type=str, default="runs/train/exp")
     p.add_argument("--eval-interval", type=int, default=10)

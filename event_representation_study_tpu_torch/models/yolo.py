@@ -1,13 +1,25 @@
 """Detector assembly (the JAX package's ``models/yolo.py``).
 
-``build_model(cfg, num_classes, ...)`` resolves backbone/neck/head by
+``build_model(cfg, num_classes, ...)`` resolves backbone and neck by
 registry name and returns a :class:`Detector` whose ``forward`` runs
 [backbone -> neck -> head] on NCHW input; train mode returns (featmaps,
 cls_scores, reg_distri), eval mode the decoded (B, A, 5+nc).
 
-Only the paper graph is ported: ``SwinTransformerV2``/``CSPBackboneP6`` +
-``CSPRepBiFPANNeck_P6`` + ``EffiDeHead``. The rest of the zoo is ROADMAP
-item M14.
+The registries hold every name of the JAX package's: the backbones
+(``SwinTransformerV2`` is the reference's name for the CSP conv network,
+``SwinTransformerV2ViT`` the genuine transformer) and the 9 necks. The
+fuse-ab and distillation heads are ROADMAP M14.
+
+``dtype=torch.bfloat16`` is the counterpart of Flax ``dtype=jnp.bfloat16``
+with float32 parameters: the forward runs under ``torch.autocast``, which
+casts the weights and inputs of every convolution, linear layer and matmul
+to bf16 (as a Flax ``Conv``/``Dense`` with that dtype does) and leaves the
+parameters, the BatchNorm statistics and the optimizer state in float32;
+BatchNorm normalises the bf16 activations with float32 statistics. Autocast
+was chosen over a bf16 copy of the module because it keeps one set of
+float32 weights (an EMA's or a checkpoint's load as they are) and needs no
+per-module dtype plumbing. The head's decode leaves autocast to keep the
+JAX promotion (:mod:`.heads`).
 """
 from __future__ import annotations
 
@@ -18,15 +30,56 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from .backbones import CSPBackboneP6
+from .backbones import (
+    CSPBackboneP6,
+    EfficientRep,
+    EfficientRep6,
+    Lite_EffiBackbone,
+    ResNet50Backbone,
+)
 from .heads import EffiDeHead
-from .necks import CSPRepBiFPANNeck_P6
+from .necks import CSPRepBiFPANNeck, CSPRepBiFPANNeck_P6, Lite_EffiNeck, PANNeckUpcat
+from .swin_vit import SwinTransformerV2ViT
 
 BACKBONES = {
     "SwinTransformerV2": CSPBackboneP6,  # the reference's name for it
     "CSPBackboneP6": CSPBackboneP6,
+    "EfficientRep": EfficientRep,
+    "EfficientRep6": EfficientRep6,
+    "ResNet": ResNet50Backbone,
+    "Lite_EffiBackbone": Lite_EffiBackbone,
+    "SwinTransformerV2ViT": SwinTransformerV2ViT,
 }
-NECKS = {"CSPRepBiFPANNeck_P6": CSPRepBiFPANNeck_P6}
+
+
+def _bifpan(cls, stage_type):
+    def build(in_channels, channels_list, num_repeats, basic_mode, csp_e):
+        return cls(in_channels, channels_list, num_repeats, basic_mode, csp_e, stage_type)
+
+    return build
+
+
+def _upcat(levels, stage_type, backbone_entries):
+    def build(in_channels, channels_list, num_repeats, basic_mode, csp_e):
+        return PANNeckUpcat(in_channels, channels_list, num_repeats, levels, backbone_entries,
+                            basic_mode, csp_e, stage_type)
+
+    return build
+
+
+# name -> builder(in_channels, channels_list, num_repeats, basic_mode, csp_e)
+NECKS = {
+    "CSPRepBiFPANNeck_P6": _bifpan(CSPRepBiFPANNeck_P6, "bepc3"),
+    "RepBiFPANNeck6": _bifpan(CSPRepBiFPANNeck_P6, "rep"),
+    "CSPRepBiFPANNeck": _bifpan(CSPRepBiFPANNeck, "bepc3"),
+    "RepBiFPANNeck": _bifpan(CSPRepBiFPANNeck, "rep"),
+    "RepPANNeck": _upcat(3, "rep", 5),
+    "CSPRepPANNeck": _upcat(3, "bepc3", 5),
+    "RepPANNeck6": _upcat(4, "rep", 6),
+    "CSPRepPANNeck_P6": _upcat(4, "bepc3", 6),
+    "Lite_EffiNeck": lambda in_channels, channels_list, num_repeats, basic_mode, csp_e:
+        Lite_EffiNeck(in_channels, unified_channels=channels_list[-1]),
+}
 HEADS = {"EffiDeHead": EffiDeHead}
 
 
@@ -34,44 +87,79 @@ def _scale(v, multiple, divisor: int = 8):
     return math.ceil(v * multiple / divisor) * divisor
 
 
+def build_backbone(name: str, in_channels: int, channels_list: Sequence[int],
+                   num_repeats: Sequence[int], basic_mode: str = "conv_silu",
+                   csp_e: float = 0.5, remat: bool = False,
+                   space_to_depth: bool = False) -> nn.Module:
+    """The backbone ``name`` as the JAX Detector builds it: ResNet and Swin
+    at their fixed presets, the Lite backbone from ``channels_list[:5]``
+    with half-width mids, the others from ``channels_list[:6]``."""
+    cls = BACKBONES[name]
+    if cls is CSPBackboneP6:
+        return cls(in_channels, channels_list[:6], num_repeats[:6], basic_mode, csp_e,
+                   remat=remat, space_to_depth=space_to_depth)
+    if cls in (ResNet50Backbone, SwinTransformerV2ViT):
+        return cls(in_channels)
+    if cls is Lite_EffiBackbone:
+        return cls(in_channels, channels_list[:5], [c // 2 for c in channels_list[:5]],
+                   num_repeats[1:5])
+    return cls(in_channels, channels_list[:6], num_repeats[:6])
+
+
 class Detector(nn.Module):
     """backbone + neck + head, names ``backbone``/``neck``/``head`` as in the
-    Flax tree."""
+    Flax tree; ``dtype`` float32 or bfloat16 (module docstring)."""
 
     def __init__(self, in_channels: int, channels_list: Sequence[int],
                  num_repeats: Sequence[int], num_classes: int,
                  head_in_channels: Sequence[int], strides=(8, 16, 32, 64),
-                 reg_max: int = 16, csp_e: float = 0.5, basic_mode: str = "conv_silu"):
+                 reg_max: int = 16, use_dfl: bool = True, csp_e: float = 0.5,
+                 basic_mode: str = "conv_silu", backbone: str = "CSPBackboneP6",
+                 neck: str = "CSPRepBiFPANNeck_P6", remat: bool = False,
+                 space_to_depth: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.backbone = CSPBackboneP6(in_channels, channels_list[:6],
-                                      num_repeats[:6], basic_mode, csp_e)
-        self.neck = CSPRepBiFPANNeck_P6(channels_list, num_repeats, basic_mode, csp_e)
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.dtype = dtype
+        self.backbone = build_backbone(backbone, in_channels, channels_list, num_repeats,
+                                       basic_mode, csp_e, remat, space_to_depth)
+        self.neck = NECKS[neck](self.backbone.out_channels, channels_list, num_repeats,
+                                basic_mode, csp_e)
         self.head = EffiDeHead(num_classes, head_in_channels, self.neck.out_channels,
-                               strides, reg_max)
+                               strides, reg_max, use_dfl)
 
     def forward(self, x):
-        return self.head(self.neck(self.backbone(x)))
+        with torch.autocast(x.device.type, torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            return self.head(self.neck(self.backbone(x)))
 
 
 def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Flax's default initialisation from ``generator``: every conv and
-    transpose-conv kernel lecun-normal (truncated normal, std
-    sqrt(1/fan_in)/0.8796), biases 0, BatchNorm scale 1 / bias 0 / mean 0 /
-    var 1, residual scales 1, then the head's pred-conv constants."""
+    """Flax's default initialisation from ``generator``: every conv,
+    transpose-conv and dense kernel lecun-normal (truncated normal, std
+    sqrt(1/fan_in)/0.8796; a grouped conv's fan-in counts its group),
+    biases 0, BatchNorm and LayerNorm scale 1 / bias 0 / mean 0 / var 1,
+    residual scales 1, Swin temperatures log 10, then the head's pred-conv
+    constants."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = mod.weight
-                fan_in = w[0].numel() if isinstance(mod, nn.Conv2d) else w.shape[0] * w[0, 0].numel()
+                if isinstance(mod, nn.ConvTranspose2d):
+                    fan_in = w.shape[0] * w[0, 0].numel()
+                else:
+                    fan_in = w[0].numel()
                 std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.reset_parameters()
         for name, p in model.named_parameters():
             if name.endswith("alpha"):
                 p.fill_(1.0)
+            elif name.endswith("logit_scale"):
+                p.fill_(math.log(10.0))
         for mod in model.modules():
             if isinstance(mod, EffiDeHead):
                 mod.reset_pred_parameters()
@@ -84,10 +172,18 @@ def build_model(
     num_channels: int = 12,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
+    fuse_ab: bool = False,
+    distill_ns: bool = False,
 ) -> Detector:
     """Build from an experiment-config dict (``cfg['model']`` with
-    backbone/neck/head sub-dicts), on ``device`` (``cuda`` unless the caller
-    asks for ``cpu``), initialised from ``generator`` when one is given."""
+    backbone/neck/head sub-dicts, ``model.remat``,
+    ``model.backbone.space_to_depth``), on ``device`` (``cuda`` unless the
+    caller asks for ``cpu``; ``meta`` builds shapes only), initialised from
+    ``generator`` when one is given, computing in ``dtype``."""
+    if fuse_ab or distill_ns:
+        raise NotImplementedError(
+            "the fuse-ab and distill_ns heads are not ported (ROADMAP M14)")
     m = cfg["model"]
     depth_mul = m.get("depth_multiple", 1.0)
     width_mul = m.get("width_multiple", 1.0)
@@ -96,11 +192,7 @@ def build_model(
                                  ("neck", nk["type"], NECKS),
                                  ("head", hd.get("type", "EffiDeHead"), HEADS)):
         if name not in registry:
-            raise NotImplementedError(
-                f"{kind} {name!r} is not ported (ROADMAP M14); ported: {sorted(registry)}"
-            )
-    if not hd.get("use_dfl", True):
-        raise NotImplementedError("the head without DFL is not ported (ROADMAP M14)")
+            raise ValueError(f"unknown {kind} {name!r}; known: {sorted(registry)}")
     channels = [
         _scale(c, width_mul) for c in list(bb["out_channels"]) + list(nk["out_channels"])
     ]
@@ -118,8 +210,14 @@ def build_model(
             head_in_channels=head_in,
             strides=tuple(hd.get("strides", (8, 16, 32, 64))),
             reg_max=hd.get("reg_max", 16),
+            use_dfl=hd.get("use_dfl", True),
             csp_e=bb.get("csp_e", 0.5),
             basic_mode=cfg.get("training_mode", "conv_silu"),
+            backbone=bb["type"],
+            neck=nk["type"],
+            remat=bool(m.get("remat", False)),
+            space_to_depth=bool(bb.get("space_to_depth", False)),
+            dtype=dtype,
         )
     if generator is not None:
         init_weights_(model, generator)

@@ -62,7 +62,7 @@ class Trainer:
         data_root,
         batch_size: int = 32,
         epochs: int = 100,
-        img_size: int = 640,
+        img_size: Optional[int] = None,
         output_dir: str = "runs/train/exp",
         eval_interval: int = 10,
         eval_interval_first: int = 20,
@@ -83,7 +83,9 @@ class Trainer:
         device="cuda",
     ):
         """The JAX Trainer's arguments, plus ``device`` (``cuda`` unless the
-        caller asks for ``cpu``); without the distillation settings
+        caller asks for ``cpu``); ``img_size`` defaults to the config's
+        ``data.img_size`` (640, or 576 for the ResNet and Swin configs).
+        Without the distillation settings
         (``distill_feat``, ``temperature``, ``teacher_ckpt``), which only
         matter with ``distill``, and ``distill`` is not ported."""
         data = cfg.get("data", {})
@@ -94,7 +96,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.epochs = epochs
-        self.img_size = img_size
+        self.img_size = img_size = img_size or data.get("img_size", 640)
         self.output_dir = pathlib.Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.eval_interval = eval_interval
@@ -133,12 +135,14 @@ class Trainer:
             warmup_bias_lr=solver.get("warmup_bias_lr", 0.05),
             epochs=epochs,
             steps_per_epoch=max(len(self.train_loader) // self.accumulate, 1),
+            momentum_dtype=solver.get("momentum_dtype", "float32"),
         )
         head = cfg["model"]["head"]
         self.loss_cfg = LossConfig(
             num_classes=nc,
             strides=tuple(head.get("strides", (8, 16, 32, 64))),
             reg_max=head.get("reg_max", 16),
+            use_dfl=head.get("use_dfl", True),
             iou_type=head.get("iou_type", "giou"),
             warmup_epoch=head.get("atss_warmup_epoch", 4),
         )

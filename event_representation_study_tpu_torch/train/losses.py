@@ -23,6 +23,7 @@ class LossConfig(NamedTuple):
     num_classes: int
     strides: Tuple[int, ...] = (8, 16, 32, 64)
     reg_max: int = 16
+    use_dfl: bool = True
     iou_type: str = "giou"
     warmup_epoch: int = 4
     weight_class: float = 1.0
@@ -54,13 +55,14 @@ def _df_loss(pred_dist, target, reg_max: int):
     return (ll * wl + lr * wr).mean(-1, keepdim=True)
 
 
-def bbox_decode(anchor_points, pred_dist, reg_max: int):
-    """DFL softmax expectation, then ltrb -> xyxy. (The head without DFL is
-    not ported, ROADMAP M14.)"""
-    b, a, _ = pred_dist.shape
-    proj = torch.arange(reg_max + 1, dtype=pred_dist.dtype, device=pred_dist.device)
-    dist = torch.softmax(pred_dist.reshape(b, a, 4, reg_max + 1), dim=-1) @ proj
-    return dist2bbox(dist, anchor_points)
+def bbox_decode(anchor_points, pred_dist, reg_max: int, use_dfl: bool = True):
+    """DFL softmax expectation (or the raw ltrb distances without DFL),
+    then ltrb -> xyxy."""
+    if use_dfl:
+        b, a, _ = pred_dist.shape
+        proj = torch.arange(reg_max + 1, dtype=pred_dist.dtype, device=pred_dist.device)
+        pred_dist = torch.softmax(pred_dist.reshape(b, a, 4, reg_max + 1), dim=-1) @ proj
+    return dist2bbox(pred_dist, anchor_points)
 
 
 def detection_loss(
@@ -81,7 +83,7 @@ def detection_loss(
     mask_gt = gt_mask[..., None].to(torch.float32)
 
     anchor_points_s = anchor_points / stride_tensor
-    pred_bboxes = bbox_decode(anchor_points_s, pred_distri, cfg.reg_max)
+    pred_bboxes = bbox_decode(anchor_points_s, pred_distri, cfg.reg_max, cfg.use_dfl)
     # the assigners see no gradient (JAX: stop_gradient)
     pd_scores = pred_scores.detach()
     pd_boxes_img = pred_bboxes.detach() * stride_tensor
@@ -110,11 +112,14 @@ def detection_loss(
     bbox_weight = target_scores.sum(-1) * fg_mask
     iou_v = iou_loss(pred_bboxes, target_bboxes, cfg.iou_type)
     loss_iou = ((1.0 - iou_v) * bbox_weight).sum() / denom
-    b, a, _ = pred_distri.shape
-    pd = pred_distri.reshape(b, a, 4, cfg.reg_max + 1)
-    target_ltrb = bbox2dist(anchor_points_s, target_bboxes, cfg.reg_max)
-    dfl = _df_loss(pd, target_ltrb, cfg.reg_max)[..., 0]
-    loss_dfl = (dfl * bbox_weight).sum() / denom
+    if cfg.use_dfl:
+        b, a, _ = pred_distri.shape
+        pd = pred_distri.reshape(b, a, 4, cfg.reg_max + 1)
+        target_ltrb = bbox2dist(anchor_points_s, target_bboxes, cfg.reg_max)
+        dfl = _df_loss(pd, target_ltrb, cfg.reg_max)[..., 0]
+        loss_dfl = (dfl * bbox_weight).sum() / denom
+    else:
+        loss_dfl = torch.zeros((), device=dev)
 
     loss = cfg.weight_class * loss_cls + cfg.weight_iou * loss_iou + cfg.weight_dfl * loss_dfl
     parts = {

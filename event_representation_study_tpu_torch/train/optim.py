@@ -2,10 +2,12 @@
 reference's 3-group nesterov SGD with a per-epoch cosine staircase, the
 warmup of LR and momentum, and gradient accumulation.
 
-Groups, by module: a BatchNorm's ``weight`` (Flax ``scale``) is group
-``bn``, every ``bias`` is group ``bias``, everything else (convolution
-kernels, BottleRep's ``alpha``) is group ``weight``, the only one with
-weight decay. Schedules are functions of the number of completed
+Groups, by the Flax leaf name as the JAX package's ``_group_of`` takes
+them: every ``scale`` (a BatchNorm's or LayerNorm's 1-d ``weight``) is
+group ``bn``, every ``bias`` is group ``bias``, everything else (kernels,
+BottleRep's ``alpha``, Swin's ``logit_scale``) is group ``weight``, the
+only one with weight decay. ``SolverConfig.momentum_dtype="bfloat16"``
+stores the momentum buffers in bf16; the update computes in float32. Schedules are functions of the number of completed
 *updates*; with accumulation (:class:`MultiSteps`) an update fires every
 k-th microstep, as ``optax.MultiSteps`` does.
 
@@ -32,6 +34,7 @@ class SolverConfig(NamedTuple):
     warmup_bias_lr: float = 0.05
     epochs: int = 100
     steps_per_epoch: int = 1000
+    momentum_dtype: str = "float32"  # or "bfloat16": the buffers' storage
 
 
 GROUPS = ("weight", "bias", "bn")
@@ -42,18 +45,18 @@ def cosine_lf(epoch: float, epochs: int, lrf: float) -> float:
 
 
 def param_groups(model: nn.Module) -> Dict[str, List[str]]:
-    """Parameter names per group: ``bn`` for BatchNorm weights, ``bias``
-    for every bias, ``weight`` for the rest."""
+    """Parameter names per group, by Flax leaf name: ``bias`` for every
+    bias, ``bn`` for every ``scale`` (the 1-d ``weight`` of a BatchNorm or
+    LayerNorm, ``utils/convert.py``'s rule), ``weight`` for the rest."""
     groups = {g: [] for g in GROUPS}
-    for mod_name, mod in model.named_modules():
-        for leaf, _ in mod.named_parameters(recurse=False):
-            name = f"{mod_name}.{leaf}" if mod_name else leaf
-            if leaf == "bias":
-                groups["bias"].append(name)
-            elif isinstance(mod, nn.modules.batchnorm._BatchNorm) and leaf == "weight":
-                groups["bn"].append(name)
-            else:
-                groups["weight"].append(name)
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "bias":
+            groups["bias"].append(name)
+        elif leaf == "weight" and p.ndim == 1:
+            groups["bn"].append(name)
+        else:
+            groups["weight"].append(name)
     return groups
 
 
@@ -85,7 +88,10 @@ def _schedules(cfg: SolverConfig):
 class FusedSGD:
     """The 3-group nesterov SGD: per parameter, with g += wd * p in group
     ``weight``: m = g + mu * m; p -= lr * (g + mu * m). ``count`` is the
-    number of completed updates, ``decay_m`` the momentum of the latest."""
+    number of completed updates, ``decay_m`` the momentum of the latest.
+    The momentum buffers are stored in ``cfg.momentum_dtype``; with
+    bfloat16 the blend reads them widened to float32 and stores the new
+    buffer rounded back."""
 
     def __init__(self, model: nn.Module, cfg: SolverConfig):
         self.cfg = cfg
@@ -93,7 +99,9 @@ class FusedSGD:
         self.groups = param_groups(model)
         lr_for, self.momentum_sched = _schedules(cfg)
         self.lr_fns = {g: lr_for(g) for g in GROUPS}
-        self.momentum = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.m_dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.momentum_dtype]
+        self.momentum = {n: torch.zeros_like(p, dtype=self.m_dtype)
+                         for n, p in self.params.items()}
         self.count = 0
         self.decay_m = self.momentum_sched(0)
 
@@ -110,10 +118,15 @@ class FusedSGD:
             gs = [grads[n] for n in names]
             if group == "weight" and wd > 0:
                 gs = torch._foreach_add(gs, ps, alpha=wd)
+            stored = ms
+            if self.m_dtype != torch.float32:
+                ms = [m.to(torch.float32) for m in ms]
             torch._foreach_mul_(ms, mom)
             torch._foreach_add_(ms, gs)
             u = torch._foreach_add(gs, ms, alpha=mom)  # nesterov
             torch._foreach_add_(ps, u, alpha=-self.lr_fns[group](self.count))
+            if stored is not ms:
+                torch._foreach_copy_(stored, ms)
         self.count += 1
         self.decay_m = mom
 

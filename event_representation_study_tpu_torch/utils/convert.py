@@ -1,26 +1,31 @@
-"""Carry weights between the JAX package and this port (the detector,
+"""Carry weights between the JAX package and this port (the detector zoo,
 ``models/resnet.py``'s classifier):
 ``flax_to_torch(variables) -> state_dict`` and, for comparing tensors leaf
 by leaf (weights, gradients, EMA), :func:`to_flax_leaves`, its inverse.
 
-``variables`` is the JAX ``Detector``'s ``{"params", "batch_stats"}`` as
-nested dicts of numpy arrays. The torch submodules carry the Flax names, so
+``variables`` is the JAX model's ``{"params", "batch_stats"}`` as nested
+dicts of numpy arrays. The torch submodules carry the Flax names, so
 conversion is a flatten (``a/b/c`` -> ``a.b.c``) plus the layout rules, the
 inverse of the JAX package's ``utils/torch_convert.py``:
 
-- Conv kernel HWIO -> OIHW
-- Dense kernel (in, out) -> Linear weight (out, in)
+- Conv kernel HWIO -> OIHW (a grouped or depthwise conv's I is
+  in / groups in both)
+- Dense kernel (in, out) -> Linear weight (out, in) (Swin's ``qkv``,
+  ``proj``, ``cpb_mlp_*``, ``mlp_fc*``, ``reduction``; CBAM's MLP)
 - ConvTranspose kernel (kh, kw, I, O) -> (I, O, kh, kw) with a spatial flip
-  (Flax applies the kernel unflipped, torch's transpose conv flipped)
-- BatchNorm scale/bias -> weight/bias; batch_stats mean/var ->
+  (Flax applies the kernel unflipped, torch's transpose conv flipped); the
+  transpose convs are the modules named ``upsample`` (``Transpose``'s,
+  inside ``upsample``, ``upsample0`` ... of every neck)
+- BatchNorm and LayerNorm scale/bias -> weight/bias; batch_stats mean/var ->
   running_mean/running_var, plus a zero ``num_batches_tracked``
-- everything else (conv biases, BottleRep ``alpha`` (1,)) as is
+- everything else (biases, BottleRep ``alpha`` (1,), Swin ``logit_scale``
+  (h, 1, 1)) as is
 
 The result loads with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -31,31 +36,43 @@ def _flatten(tree, prefix=()):
         if isinstance(v, dict) or hasattr(v, "items"):
             yield from _flatten(v, prefix + (k,))
         else:
-            yield prefix + (k,), np.asarray(v, dtype=np.float32)
+            yield prefix + (k,), v
+
+
+def _param_to_torch(path, arr) -> Tuple[str, np.ndarray]:
+    """One Flax param leaf -> (state-dict name, a view in torch layout)."""
+    mod, leaf = list(path[:-1]), path[-1]
+    if leaf == "kernel":
+        if arr.ndim not in (2, 4):
+            raise ValueError(f"unexpected {arr.ndim}-d kernel at {'/'.join(path)}")
+        if arr.ndim == 2:  # Dense
+            arr = arr.T
+        elif mod[-1] == "upsample":  # Transpose's ConvTranspose
+            arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        else:
+            arr = arr.transpose(3, 2, 0, 1)
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join(mod + [leaf]), arr
+
+
+def _converted(variables, leaf_fn):
+    """(name, array view) of every leaf, ``leaf_fn`` making the array."""
+    for path, v in _flatten(variables["params"]):
+        yield _param_to_torch(path, leaf_fn(v))
+    stats = {"mean": "running_mean", "var": "running_var"}
+    for path, v in _flatten(variables.get("batch_stats", {})):
+        mod = ".".join(path[:-1])
+        yield f"{mod}.{stats[path[-1]]}", leaf_fn(v)
+        yield f"{mod}.num_batches_tracked", None
 
 
 def flax_to_torch(variables: Dict) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(variables["params"]):
-        mod, leaf = list(path[:-1]), path[-1]
-        if leaf == "kernel":
-            if arr.ndim not in (2, 4):
-                raise ValueError(f"unexpected {arr.ndim}-d kernel at {'/'.join(path)}")
-            if arr.ndim == 2:  # Dense
-                arr = arr.T
-            elif mod[-2:] == ["upsample", "upsample"]:  # Transpose/ConvTranspose
-                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
-            else:
-                arr = arr.transpose(3, 2, 0, 1)
-            leaf = "weight"
-        elif leaf == "scale":
-            leaf = "weight"
-        sd[".".join(mod + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
-    stats = {"mean": "running_mean", "var": "running_var"}
-    for path, arr in _flatten(variables.get("batch_stats", {})):
-        mod = ".".join(path[:-1])
-        sd[f"{mod}.{stats[path[-1]]}"] = torch.from_numpy(np.ascontiguousarray(arr))
-        sd[f"{mod}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+    for name, arr in _converted(variables, lambda v: np.asarray(v, dtype=np.float32)):
+        sd[name] = (torch.tensor(0, dtype=torch.int64) if arr is None
+                    else torch.from_numpy(np.ascontiguousarray(arr)))
     return sd
 
 
@@ -75,14 +92,14 @@ def to_flax_leaves(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
         if leaf in ("running_mean", "running_var"):
             coll, leaf = "batch_stats", leaf[len("running_"):]
         elif leaf == "weight" and arr.ndim == 4:
-            if mod[-2:] == ["upsample", "upsample"]:  # transpose conv
+            if mod[-1] == "upsample":  # transpose conv
                 arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
             else:
                 arr = arr.transpose(2, 3, 1, 0)
             leaf = "kernel"
         elif leaf == "weight" and arr.ndim == 2:  # Linear
             arr, leaf = arr.T, "kernel"
-        elif leaf == "weight":  # the only 1-d weights are BatchNorm scales
+        elif leaf == "weight":  # the only 1-d weights are BatchNorm and LayerNorm scales
             leaf = "scale"
         out["/".join([coll, *mod, leaf])] = np.ascontiguousarray(arr)
     return out

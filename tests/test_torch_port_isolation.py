@@ -24,7 +24,9 @@ NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_s
                "cli.gwd", "search.benchmarks", "search.chimera", "search.db", "search.native",
                "search.kernels", "search.bnn", "search.acquisition", "search.gryffin",
                "search.optimize", "search.mixed", "cli.bo", "events.windows", "data.nimagenet",
-               "data.nimagenet_loaders", "models.resnet", "train.classifier", "cli.classify")
+               "data.nimagenet_loaders", "models.resnet", "train.classifier", "cli.classify",
+               "models.swin_vit", "models.backbones", "models.necks", "models.layers",
+               "utils.reparam")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -108,6 +110,28 @@ def test_cli_defaults_to_cuda(no_cuda, cli, tmp_path):
         args = ["--data-path", str(tmp_path)]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(args)
+
+
+def test_eval_half_defaults_to_cuda(no_cuda, tmp_path):
+    """``cli/eval.py --half`` (bf16 compute) raises without CUDA rather than
+    running on the CPU."""
+    from event_representation_study_tpu_torch.cli import eval as eval_cli
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        eval_cli.main(["--data-path", str(tmp_path), "--half"])
+
+
+def test_bf16_train_step_is_refused():
+    """A bf16 model's train step waits for a bf16 K3 (ROADMAP M20)."""
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.parallel.train_step import TrainState
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    cfg = load_config(REPO / "configs/gen1_optimized.py",
+                      overrides=["model.depth_multiple=0.2", "model.width_multiple=0.125"])
+    model = build_model(cfg, 2, device="cpu", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="M20"):
+        _train_step()(TrainState(model, None, None), None, 0)
 
 
 @pytest.mark.parametrize("metric", ["otmi", "gw_distance"])
@@ -199,14 +223,15 @@ def _train_step(**kw):
         (lambda tmp: _trainer(tmp, plot_images=True), "M19"),
         (lambda tmp: _trainer(tmp, quant_calib=True), "M14"),
         (lambda tmp: _trainer(tmp, fuse_ab=True), "M14"),
-        (lambda tmp: _build("EfficientRep"), "M14"),
+        (lambda tmp: _build(fuse_ab=True), "M14"),
         (lambda tmp: _train_step(mode="fuseab"), "M14"),
         (lambda tmp: _train_step(mode="distill"), "M14"),
         (lambda tmp: _trainer(tmp, steps_per_dispatch=2), "M7"),
         (lambda tmp: _train_step(representation="LearnedRepresentation"), "M14"),
     ],
     # the ids "hdf5" and "train_event_aug" (both ported) keep their names for
-    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7)
+    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7);
+    # "backbone" (every backbone is ported) for build_model's fuse-ab head
     ids=["train_plots", "train_ptq", "hdf5", "backbone", "train_fuseab", "train_distill",
          "train_event_aug", "train_learned_rep"],
 )
@@ -222,13 +247,11 @@ def _trainer(tmp, **kw):
     return Trainer(load_config(REPO / "configs/gen1_optimized.py"), tmp, device="cpu", **kw)
 
 
-def _build(backbone):
+def _build(**kw):
     from event_representation_study_tpu_torch.models import build_model
     from event_representation_study_tpu_torch.utils.config import load_config
 
-    cfg = load_config(REPO / "configs/gen1_optimized.py")
-    cfg["model"]["backbone"]["type"] = backbone
-    return build_model(cfg, 2)
+    return build_model(load_config(REPO / "configs/gen1_optimized.py"), 2, device="meta", **kw)
 
 
 @pytest.mark.parametrize("suffix", [".npz", ".npy", ".npz-structured"])

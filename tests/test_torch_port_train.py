@@ -75,7 +75,7 @@ def test_anchors_and_boxes():
     xy = rng.uniform(0, 50, (3, 7, 2))
     b1 = np.concatenate([xy, xy + rng.uniform(1, 30, (3, 7, 2))], -1).astype(np.float32)
     b2 = (b1 + rng.normal(0, 5, b1.shape)).astype(np.float32)
-    for t in ("iou", "giou"):
+    for t in ("iou", "giou", "diou", "ciou", "siou"):
         assert_close(t, boxes.iou_loss(_t(b1), _t(b2), t).numpy(),
                      np.asarray(jax_boxes.iou_loss(b1, b2, t)), atol=1e-6)
     pts = rng.uniform(10, 40, (3, 7, 2)).astype(np.float32)
@@ -83,8 +83,8 @@ def test_anchors_and_boxes():
                  np.asarray(jax_boxes.bbox2dist(pts, b1, 16)), atol=1e-6)
     assert_close("xyxy2xywh", boxes.xyxy2xywh(_t(b1)).numpy(),
                  np.asarray(jax_boxes.xyxy2xywh(b1)), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="M14"):
-        boxes.iou_loss(_t(b1), _t(b2), "siou")
+    with pytest.raises(ValueError, match="unknown iou_type"):
+        boxes.iou_loss(_t(b1), _t(b2), "wiou")
 
 
 def _compare_assignment(got, want):

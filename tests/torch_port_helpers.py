@@ -37,6 +37,17 @@ def assert_close(what: str, got, want, atol: float, rtol: float = 0.0) -> None:
         np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
 
 
+def flax_to_torch_shapes(shapes):
+    """State-dict names and shapes of ``convert.flax_to_torch`` from a tree
+    of leaves with a ``shape`` (``jax.ShapeDtypeStruct``s), allocating
+    nothing."""
+    from event_representation_study_tpu_torch.utils.convert import _converted
+
+    zero = np.float32(0)
+    return {name: () if arr is None else tuple(arr.shape)
+            for name, arr in _converted(shapes, lambda v: np.broadcast_to(zero, v.shape))}
+
+
 def small_cfg():
     from event_representation_study_tpu.utils.config import load_config
 
@@ -45,16 +56,22 @@ def small_cfg():
 
 def random_jax_variables(jax_model, img_size: int, channels: int = 12, seed: int = 1):
     """Every leaf of the JAX Detector's {"params", "batch_stats"} drawn from
-    numpy: kernels N(0, 1/fan_in), BN scales/variances and residual scales
-    U(0.5, 1.5), biases and means N(0, 0.1^2). The pred convs start at zero
-    weights, so initial weights would prove nothing about them."""
-    import jax
+    numpy (:func:`random_variables`)."""
     import jax.numpy as jnp
 
-    shapes = jax.eval_shape(
-        functools.partial(jax_model.init, train=False),
-        jax.random.PRNGKey(0), jnp.zeros((1, img_size, img_size, channels)),
-    )
+    return random_variables(jax_model, jnp.zeros((1, img_size, img_size, channels)), seed=seed)
+
+
+def random_variables(jax_module, *inputs, seed: int = 1, **init_kwargs):
+    """Every leaf of a Flax module's {"params", "batch_stats"} at the given
+    inputs drawn from numpy: kernels N(0, 1/fan_in), BN scales/variances and
+    residual scales U(0.5, 1.5), biases, means and the rest N(0, 0.1^2).
+    The pred convs start at zero weights, so initial weights would prove
+    nothing about them."""
+    import jax
+
+    shapes = jax.eval_shape(functools.partial(jax_module.init, **init_kwargs),
+                            jax.random.PRNGKey(0), *inputs)
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -67,7 +84,7 @@ def random_jax_variables(jax_model, img_size: int, channels: int = 12, seed: int
         return (rng.normal(size=s.shape) * 0.1).astype(np.float32)
 
     tree = jax.tree_util.tree_map_with_path(fill, shapes)
-    return {k: tree[k] for k in ("params", "batch_stats")}
+    return {k: tree[k] for k in ("params", "batch_stats") if k in tree}
 
 
 DET_IMG = 128
@@ -224,3 +241,288 @@ def fake_surrogates(monkeypatch):
                             lambda _seed, obs, counts, **kw: fake_categorical(obs, counts))
         monkeypatch.setattr(mod, "fit_mixed_kernels",
                             lambda _seed, c, counts, x, nc, **kw: fake_mixed(c, counts, x, nc))
+
+
+# -- the detector zoo (tests/test_torch_port_zoo_*.py) ------------------------
+
+
+def nchw(x):
+    """NHWC numpy -> NCHW tensor view."""
+    return torch.from_numpy(x).permute(0, 3, 1, 2)
+
+
+def nhwc(t):
+    """NCHW tensor -> NHWC numpy."""
+    return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def close_to_scale(what, got, want, rel=1e-4):
+    """assert_close at ``rel`` of the largest magnitude of ``want``."""
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    assert_close(what, got, want, atol=rel * float(np.abs(want).max()) + 1e-6)
+
+
+def port_bn_stats(module):
+    """The port module's BatchNorm statistics as flat Flax leaves."""
+    from event_representation_study_tpu_torch.utils.convert import to_flax_leaves
+
+    return {k: v for k, v in to_flax_leaves(module.state_dict()).items()
+            if k.startswith("batch_stats/")}
+
+
+def jax_leaves(tree, prefix):
+    """A nested JAX/NumPy tree as flat ``prefix/a/b/leaf`` arrays."""
+    import jax
+
+    return {prefix + "/" + "/".join(p.key for p in path): np.asarray(v)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def compare_stats(what, port_module, jax_stats):
+    """The port's BatchNorm statistics against JAX's updated ones (1e-4
+    relative plus 1e-5)."""
+    got, want = port_bn_stats(port_module), jax_leaves(jax_stats, "batch_stats")
+    assert set(got) == set(want) and want
+    for k in want:
+        assert_close(f"{what} {k}", got[k], want[k], atol=1e-5, rtol=1e-4)
+
+
+def zoo_pair(name, width, img, seed=1):
+    """Eval decodes of the shrunk config ``name`` (depth 0.2, ``width``) on
+    one random (2, img, img, 12) input: {"jax_<dtype>": array,
+    "port_<dtype>": tensor} for float32 and bfloat16, one set of weights."""
+    import jax
+    import jax.numpy as jnp
+
+    from event_representation_study_tpu.models import build_model as jax_build_model
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.utils.config import load_config
+    from event_representation_study_tpu_torch.utils.convert import flax_to_torch
+
+    cfg = load_config(f"configs/{name}.py", overrides=[
+        "model.depth_multiple=0.2", f"model.width_multiple={width}"])
+    jm = jax_build_model(cfg, num_classes=2)
+    x = np.random.default_rng(0).normal(size=(2, img, img, 12)).astype(np.float32)
+    variables = random_variables(jm, jnp.asarray(x), seed=seed)
+    out = {}
+    for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        jmd = jax_build_model(cfg, num_classes=2, dtype=jdtype)
+        out[f"jax_{dtype}"] = np.asarray(jax.jit(lambda v, a: jmd.apply(v, a, False))(
+            variables, x))
+        model = build_model(cfg, 2, device="cpu", dtype=dtype)
+        model.load_state_dict(flax_to_torch(variables), strict=True)
+        with torch.no_grad():
+            out[f"port_{dtype}"] = model.eval()(nchw(x))
+    return out
+
+
+def bf16_errors(out):
+    """Mean absolute errors (boxes, scores) of each bf16 output against its
+    framework's float32 output, and the direct port-vs-JAX statistics."""
+    pf, pb = out[f"port_{torch.float32}"].numpy(), out[f"port_{torch.bfloat16}"].numpy()
+    jf, jb = out[f"jax_{torch.float32}"], out[f"jax_{torch.bfloat16}"]
+
+    def mean(a, b, sl):
+        return float(np.abs(a[..., sl] - b[..., sl]).mean())
+
+    box, cls = slice(0, 4), slice(5, None)
+    d_box = np.abs(pb[..., box] - jb[..., box])
+    d_cls = np.abs(pb[..., cls] - jb[..., cls])
+    return {
+        "range": float(np.abs(jf[..., box]).max()),
+        "port": (mean(pb, pf, box), mean(pb, pf, cls)),
+        "jax": (mean(jb, jf, box), mean(jb, jf, cls)),
+        "direct": (float(d_box.mean()), float(np.quantile(d_box, 0.99)), float(d_cls.mean()),
+                   float(d_cls.max())),
+    }
+
+
+def check_bf16(name, out):
+    """The bf16 rules of the zoo tests: float32 decoded boxes, the port's
+    mean error against its float32 output within 2x JAX's (plus 1e-3 of
+    the box range, 1e-4 in scores), and the direct port-vs-JAX bounds."""
+    got = out[f"port_{torch.bfloat16}"]
+    assert got.dtype == torch.float32
+    boxes = got[..., :4]
+    # boxes decoded in float32, not rounded to bf16
+    assert float((boxes.to(torch.bfloat16).to(torch.float32) == boxes).float().mean()) < 0.5
+    e = bf16_errors(out)
+    floor = (1e-3 * e["range"], 1e-4)
+    for i, what in enumerate(("boxes", "scores")):
+        assert_close(f"{name} bf16 {what}: port mean err vs f32 (atol: 2 x JAX's + floor)",
+                     e["port"][i], 0.0, atol=2 * e["jax"][i] + floor[i])
+    box_mean, box_p99, cls_mean, cls_max = e["direct"]
+    assert_close(f"{name} bf16 port vs JAX boxes mean / range", box_mean / e["range"], 0.0,
+                 atol=5e-3)
+    assert_close(f"{name} bf16 port vs JAX boxes p99 / range", box_p99 / e["range"], 0.0,
+                 atol=8e-2)
+    assert_close(f"{name} bf16 port vs JAX scores mean", cls_mean, 0.0, atol=2e-2)
+    assert_close(f"{name} bf16 port vs JAX scores max", cls_max, 0.0, atol=0.5)
+
+
+# -- a whole train step of a zoo config (tests/test_torch_port_zoo_train*.py)
+
+ZOO_STEP = dict(H=64, IMG=128, CAP=2048, M=16, START_UPDATE=1500, EPOCH=5,
+                SOLVER=dict(epochs=300, steps_per_epoch=1000))
+
+
+def _with_grad_spy(tx):
+    """An optax transform whose state also carries the last gradients."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    def init(params):
+        return tx.init(params), jax.tree.map(jnp.zeros_like, params)
+
+    def update(grads, state, params=None):
+        upd, inner = tx.update(grads, state[0], params)
+        return upd, (inner, grads)
+
+    return optax.GradientTransformation(init, update)
+
+
+def zoo_step_pair(config: str, batch: int = 4):
+    """One whole train step (ERGO-12, letterbox, separable warp with mosaic
+    and mixup at 1.0, TAL at epoch 5, SGD past its warmup) of the config
+    shrunk to depth 0.2 / width 0.125 at 128 px, on ``batch`` windows, in
+    both packages from the same random weights and batch: (port, jax,
+    before) as flat Flax-path dicts of grads, params, batch_stats and the
+    loss parts."""
+    import jax
+    import jax.numpy as jnp
+
+    from event_representation_study_tpu.data.augment import plan_augment_batch as jax_plan
+    from event_representation_study_tpu.events import from_structured as jax_from_structured
+    from event_representation_study_tpu.events import stack_blocks as jax_stack_blocks
+    from event_representation_study_tpu.models import build_model as jax_build_model
+    from event_representation_study_tpu.ops.warp import AugPlan as JaxAugPlan
+    from event_representation_study_tpu.parallel import train_step as jax_train_step
+    from event_representation_study_tpu.train import ema as jax_ema
+    from event_representation_study_tpu.train import losses as jax_losses
+    from event_representation_study_tpu.train import optim as jax_optim
+    from event_representation_study_tpu_torch.data.augment import plan_augment_batch
+    from event_representation_study_tpu_torch.events import (
+        from_structured, generate_fake_events, stack_blocks)
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.ops.image import letterbox_labels
+    from event_representation_study_tpu_torch.ops.warp import AugPlan
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        Batch, TrainState, make_train_step)
+    from event_representation_study_tpu_torch.train import optim
+    from event_representation_study_tpu_torch.train.ema import ema_init
+    from event_representation_study_tpu_torch.train.losses import LossConfig
+    from event_representation_study_tpu_torch.utils.config import load_config
+    from event_representation_study_tpu_torch.utils.convert import flax_to_torch, to_flax_leaves
+
+    c = ZOO_STEP
+    H = W = c["H"]
+    IMG, B, CAP, M = c["IMG"], batch, c["CAP"], c["M"]
+    cfg = load_config(f"configs/{config}.py",
+                      overrides=["model.depth_multiple=0.2", "model.width_multiple=0.125"])
+    hd = cfg["model"]["head"]
+    loss_cfg = dict(num_classes=2, strides=tuple(hd["strides"]), reg_max=hd["reg_max"],
+                    iou_type=hd["iou_type"])
+    jax_model = jax_build_model(cfg, num_classes=2)
+    variables = random_variables(jax_model, jnp.zeros((1, IMG, IMG, 12)), seed=3)
+    # the class preds at their init (zero kernels, prior bias -4.6), as a run
+    # starts: random ones put every score near 0.5, and the varifocal loss's
+    # gradient then swamps the step in float32 noise
+    for name, leaf in variables["params"]["head"].items():
+        if name.startswith("cls_pred_"):
+            leaf["kernel"] = np.zeros_like(leaf["kernel"])
+            leaf["bias"] = np.full_like(leaf["bias"], -np.log(99.0))
+    rng = np.random.default_rng(11)
+    evs = [generate_fake_events(1500, H, W, 50_000, seed=30 + i) for i in range(B)]
+    labels = []
+    for _ in range(B):
+        xywh = np.concatenate([rng.uniform(0.25, 0.75, (2, 2)), rng.uniform(0.15, 0.4, (2, 2))], 1)
+        norm = np.concatenate([rng.integers(0, 2, (2, 1)), xywh], 1).astype(np.float32)
+        labels.append(letterbox_labels(norm, H, W, IMG))
+    hyp = dict(cfg["data_aug"], mosaic=1.0, mixup=1.0)
+    plan, lab, nl = plan_augment_batch(labels, IMG, hyp, np.random.default_rng(9), M)
+    plan_j, _, _ = jax_plan(labels, IMG, hyp, np.random.default_rng(9), M)
+    assert all(np.array_equal(plan[k], plan_j[k]) for k in plan)
+    mask = (np.arange(M)[None] < nl[:, None]).astype(np.float32)
+
+    tx_j = _with_grad_spy(jax_optim.build_optimizer(variables["params"],
+                                                    jax_optim.SolverConfig(**c["SOLVER"])))
+    opt0 = tx_j.init(variables["params"])
+    state_j = jax_train_step.TrainState(
+        variables["params"], variables["batch_stats"],
+        (opt0[0]._replace(count=jnp.int32(c["START_UPDATE"])), opt0[1]),
+        jax_ema.EMAState(variables, jnp.int32(0)), jnp.int32(0))
+    step_j = jax_train_step.make_train_step(
+        jax_model, jax_losses.LossConfig(**loss_cfg), tx_j,
+        representation="OptimizedRepresentation", rep_hw=(H, W), img_size=IMG, donate=False,
+        warp_impl="separable")
+    batch_j = jax_train_step.Batch(
+        None, jax_stack_blocks([jax_from_structured(e, CAP) for e in evs]),
+        lab[..., 0].astype(np.int32), lab[..., 1:5], mask,
+        JaxAugPlan(**{k: jnp.asarray(v) for k, v in plan.items()}))
+    new_j, parts_j = step_j(state_j, batch_j, c["EPOCH"])
+    want = {"grads": jax_leaves(new_j.opt_state[1], "params"),
+            "params": jax_leaves(new_j.params, "params"),
+            "batch_stats": jax_leaves(new_j.batch_stats, "batch_stats"),
+            "parts": {k: float(v) for k, v in parts_j.items()}}
+
+    model = build_model(cfg, 2, device="cpu")
+    model.load_state_dict(flax_to_torch(variables), strict=True)
+    opt = optim.build_optimizer(model, optim.SolverConfig(**c["SOLVER"]))
+    opt.count = c["START_UPDATE"]
+    state = TrainState(model, opt, ema_init(model), 0)
+    step = make_train_step(LossConfig(**loss_cfg), "OptimizedRepresentation", (H, W), IMG,
+                           warp_impl="separable", device="cpu")
+    batch = Batch(None, stack_blocks([from_structured(e, CAP) for e in evs]), lab[..., 0],
+                  lab[..., 1:5], mask, AugPlan(**plan))
+    state, parts = step(state, batch, c["EPOCH"])
+    got = {"grads": to_flax_leaves({n: p.grad for n, p in model.named_parameters()}),
+           "params": to_flax_leaves(dict(model.named_parameters())),
+           "batch_stats": port_bn_stats(model),
+           "parts": {k: float(v) for k, v in parts.items()}}
+    before = {**jax_leaves(variables["params"], "params"),
+              **jax_leaves(variables["batch_stats"], "batch_stats")}
+    return got, want, before
+
+
+def _leafwise(got, want, minus=None):
+    """The largest difference of a leaf over its largest JAX entry plus 1e-3
+    of the largest over all leaves. With ``minus`` (the parameters before
+    the step) the updates are compared, less one float32 ulp of each
+    parameter: storing p + u rounds the update by up to that much."""
+    ulp = {k: 0.0 for k in want}
+    if minus is not None:
+        ulp = {k: np.spacing(np.abs(minus[k]).astype(np.float32)) for k in want}
+        got = {k: got[k] - minus[k] for k in want}
+        want = {k: want[k] - minus[k] for k in want}
+    top = max(float(np.abs(w).max()) for w in want.values())
+    return max(float(np.maximum(np.abs(got[k] - want[k]) - ulp[k], 0.0).max())
+               / (float(np.abs(want[k]).max()) + 1e-3 * top) for k in want)
+
+
+def check_zoo_step(name, part, got, want, before):
+    """One comparison of :func:`zoo_step_pair`'s outputs: loss terms 1e-4
+    relative and equal positive anchors; gradients and parameter updates
+    2e-2 over each leaf's scale; BatchNorm statistics 2e-3 relative plus
+    1e-4."""
+    if part == "loss_terms":
+        for k in ("loss", "cls", "iou", "dfl"):
+            assert_close(f"{name} {k}", got["parts"][k], want["parts"][k], atol=0, rtol=1e-4)
+        assert got["parts"]["num_pos"] == want["parts"]["num_pos"] > 0
+    elif part == "gradients":
+        assert set(got["grads"]) == set(want["grads"])
+        assert_close(f"{name} gradients / leaf scale", _leafwise(got["grads"], want["grads"]),
+                     0.0, atol=2e-2)
+    elif part == "updated_parameters":
+        assert set(got["params"]) == set(want["params"])
+        assert_close(f"{name} parameter update / leaf scale",
+                     _leafwise(got["params"], want["params"], before), 0.0, atol=2e-2)
+    else:
+        assert part == "batch_statistics"
+        assert set(got["batch_stats"]) == set(want["batch_stats"])
+        for k in want["batch_stats"]:
+            assert_close(f"{name} {k}", got["batch_stats"][k], want["batch_stats"][k],
+                         atol=1e-4, rtol=2e-3)
+
+
+ZOO_STEP_PARTS = ("loss_terms", "gradients", "updated_parameters", "batch_statistics")
