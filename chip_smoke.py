@@ -124,6 +124,29 @@ Phases, one printed line each:
 22. zoo_reference: a shrunk copy of each family of phase 20 serves the
    reference phase's windows on the card and on the CPU from the same
    weights.
+23. variants: the training variants and deploy tools at the full width of
+   the paper detector (batch 8 of 50,000-event windows at 640², float32):
+   a fuse-ab run and a distillation run (``distill_feat``; the teacher
+   written as a train checkpoint and read back by
+   ``load_teacher_variables``), each a warm-up plus 3 ATSS and 3 TAL steps
+   through ``make_train_step`` with the separable warp (K1 once and K3 twice
+   a step; the teacher's BatchNorm statistics bit-unchanged); the learned
+   representation (raw events into the quantization layer; the config's
+   flips on the host, no strong aug) a warm-up plus 6 steps and an eval
+   batch (K1 and K3 never);
+   ``DetectBackend.detect`` on a deploy checkpoint against the eval step
+   and NMS; ``cli/train.py --fuse-ab --quant --calib`` on the trainer
+   phase's synthetic splits (no training, ``ptq_ckpt`` with int8 weights
+   and scales equal to the same quantization on the CPU); the serving
+   graph exported with ``torch.export``, saved, loaded and served 3
+   requests (K1 once each; detections equal to the eager server's), with
+   the export and load seconds. Step medians, peak memory and launches a
+   mode.
+24. variants_reference: one fuse-ab, one distill_ns (a YOLOv6s student) and
+   one learned step of a shrunk detector at 128 px on the card and on the
+   CPU from the same weights, held as ``train_reference`` is; the learned
+   step's value layer (``quantization.*``) in a float64 step, since its
+   float32 bias gradients are chaotic, every other leaf in the float32 one.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -133,6 +156,7 @@ and no result line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -491,11 +515,14 @@ def loss_config(cfg):
                       warmup_epoch=hd["atss_warmup_epoch"])
 
 
-def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = IMG):
-    """The full-width detector of ``configs/<config>.py``, its train state
-    and step (separable warp) at ``img``, and ``n_batches`` batches of B
-    windows with the config's strong augmentation planned for each.
-    Returns (state, step, batches, info)."""
+def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = IMG,
+                model_kw=None, step_kw=None, plan: bool = True):
+    """The full-width detector of ``configs/<config>.py`` (``build_model``
+    also given ``model_kw``), its train state and step (separable warp;
+    ``make_train_step`` also given ``step_kw``) at ``img``, and ``n_batches``
+    batches of B windows with the config's strong augmentation planned for
+    each (with ``plan`` false: the config's flips only, as the learned
+    representation trains). Returns (state, step, batches, info)."""
     from event_representation_study_tpu_torch.models import build_model
     from event_representation_study_tpu_torch.ops.warp import separable_hyp_eligible
     from event_representation_study_tpu_torch.parallel.train_step import (
@@ -507,8 +534,10 @@ def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = 
     cfg = load_config(f"configs/{config}.py")
     hyp = dict(cfg["data_aug"])
     require(separable_hyp_eligible(hyp, img), f"{config}: the recipe must fit the separable warp")
+    model_kw = model_kw or {}
     t0 = time.perf_counter()
-    model = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+    model = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(5),
+                        **model_kw)
     # random box-pred convs: with Flax's zero init nothing upstream of them
     # gets a gradient at first. The class preds keep their init (logits
     # -4.6): random ones saturate sigmoid scores to 1.0 in float32, where the
@@ -520,14 +549,66 @@ def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = 
     # its learning rate (at update 0 the weight and BN groups have none)
     sgd.count = max(round(sgd.cfg.warmup_epochs * sgd.cfg.steps_per_epoch), 1000)
     state = init_train_state(model, with_accumulation(sgd, k_acc))
-    step = make_train_step(loss_config(cfg), "OptimizedRepresentation", (H, W), img,
-                           warp_impl="separable", device=dev)
+    step = make_train_step(loss_config(cfg), model_kw.get("representation",
+                                                          "OptimizedRepresentation"),
+                           (H, W), img, warp_impl="separable", device=dev, **(step_kw or {}))
     info = {"build_s": time.perf_counter() - t0, "accumulate": k_acc,
             "params": sum(p.numel() for p in model.parameters())}
     rng = np.random.default_rng(0)
-    batches = [make_batch(fake_batch(1000 + 10 * i), fake_labels(rng, img=img), hyp, rng, img)
-               for i in range(n_batches)]
+    batches = [(make_batch if plan else flip_batch)(
+        fake_batch(1000 + 10 * i), fake_labels(rng, img=img), hyp, rng, img)
+        for i in range(n_batches)]
     return state, step, batches, info
+
+
+def flip_batch(blocks, labels, hyp, rng, img: int = IMG):
+    """A train Batch without a strong-augmentation plan: each window's
+    events and letterboxed boxes flipped left-right and up-down with the
+    probabilities of ``hyp`` on the host, as the loader flips them, and the
+    boxes padded to LABELS_PER_WINDOW."""
+    from event_representation_study_tpu_torch.ops.image import letterbox_geometry
+    from event_representation_study_tpu_torch.parallel.train_step import Batch
+
+    r, _, (dw, dh) = letterbox_geometry(H, W, img)
+    x, y = blocks.x.clone(), blocks.y.clone()
+    lab = np.zeros((len(labels), LABELS_PER_WINDOW, 5), np.float32)
+    mask = np.zeros((len(labels), LABELS_PER_WINDOW), np.float32)
+    for i, a in enumerate(labels):
+        a, n = a.copy(), int(blocks.num[i])
+        if rng.random() < hyp["fliplr"]:  # sensor x -> W - 1 - x, box cx -> 1 - cx
+            x[i, :n] = W - 1 - x[i, :n]
+            a[:, [1, 3]] = 2 * dw + r * W - a[:, [3, 1]]
+        if rng.random() < hyp["flipud"]:
+            y[i, :n] = H - 1 - y[i, :n]
+            a[:, [2, 4]] = 2 * dh + r * H - a[:, [4, 2]]
+        lab[i, :len(a)], mask[i, :len(a)] = a, 1.0
+    return Batch(None, dataclasses.replace(blocks, x=x, y=y), lab[..., 0], lab[..., 1:5], mask)
+
+
+def timed_steps(state, step, batches):
+    """The steps of TRAIN_STEPS (epoch -> count) on ``batches`` in order,
+    each timed to its end on the host clock, with the launch counters and
+    the peak memory zeroed before. Returns (state, ms a step, the parts of
+    each step, launches, peak bytes)."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs.reset_launches()
+    roll.reset_launches()
+    times, per_step, i = [], [], 0
+    for epoch, count in TRAIN_STEPS.items():
+        for _ in range(count):
+            t = time.perf_counter()
+            state, parts = step(state, batches[i], epoch)
+            vals = {k: v.item() for k, v in parts.items()}  # host copy: waits
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            per_step.append(dict(epoch=epoch, **vals))
+            i += 1
+    return (state, times, per_step, {**fs.LAUNCHES, **roll.LAUNCHES},
+            torch.cuda.max_memory_allocated())
 
 
 def train_phase(dev):
@@ -551,22 +632,7 @@ def train_phase(dev):
     p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
     e0 = {k: v.clone() for k, v in state.ema.variables.items()}
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fs.reset_launches()
-    roll.reset_launches()
-    times, per_step, i = [], [], 1
-    for epoch, count in TRAIN_STEPS.items():
-        for _ in range(count):
-            t = time.perf_counter()
-            state, parts = step(state, batches[i], epoch)
-            vals = {k: v.item() for k, v in parts.items()}  # host copy: waits
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            per_step.append(dict(epoch=epoch, **vals))
-            i += 1
-    launches = {**fs.LAUNCHES, **roll.LAUNCHES}
-    peak = torch.cuda.max_memory_allocated()
+    state, times, per_step, launches, peak = timed_steps(state, step, batches[1:])
     changed = sum(not torch.equal(p0[n], p) for n, p in model.named_parameters())
     ema_changed = sum(not torch.equal(e0[k], v) for k, v in state.ema.variables.items())
     say("train", batch=B, events_per_window=N, img=IMG, **info, warmup_step_ms=warm_ms,
@@ -719,34 +785,43 @@ def warp_phase(dev):
     require(err <= 1e-3, f"warp card vs CPU: {err}")
 
 
-def train_reference(dev):
-    """One train step of a shrunk detector at 128 px, batch 4, mosaic and
-    mixup at 1.0, on the card and on the CPU from the same weights."""
+SMALL = ["model.depth_multiple=0.2", "model.width_multiple=0.125"]
+REF_IMG = 128  # the image size of the card-vs-CPU train steps
+
+
+def card_vs_cpu_step(dev, cfg, batch, model_kw=None, step_kw=None, teacher=None,
+                     dtype=torch.float32, held=lambda leaf: True):
+    """One train step (epoch 0, REF_IMG px) of the detector of ``cfg``
+    (``build_model`` given ``model_kw``, random pred convs, parameters in
+    ``dtype``) on the card and on the CPU from the same weights; a
+    ``teacher`` (a CPU model) is copied to each device. Returns (parts on
+    the CPU, parts on the card, errors): the loss's relative error, and for
+    gradients, parameter updates and BatchNorm statistics the largest
+    card-CPU difference of a leaf that ``held`` names over its largest CPU
+    entry plus 1e-3 of the largest over all leaves, with the leaf."""
     from event_representation_study_tpu_torch.models import build_model
     from event_representation_study_tpu_torch.parallel.train_step import (
         TrainState, make_train_step)
     from event_representation_study_tpu_torch.train.ema import ema_init
     from event_representation_study_tpu_torch.train.optim import build_optimizer
-    from event_representation_study_tpu_torch.utils.config import load_config
 
-    small = load_config("configs/gen1_optimized.py",
-                        overrides=["model.depth_multiple=0.2", "model.width_multiple=0.125"])
-    hyp = dict(small["data_aug"], mosaic=1.0, mixup=1.0)
-    img = 128
-    rng = np.random.default_rng(8)
-    batch = make_batch(fake_batch(9, n_windows=4, n_events=5000), fake_labels(rng, 4, img), hyp,
-                       rng, img)
-    base = build_model(small, 2, device="cpu", generator=torch.Generator().manual_seed(4))
+    model_kw = model_kw or {}
+    base = build_model(cfg, 2, device="cpu", generator=torch.Generator().manual_seed(4),
+                       **model_kw)
     randomize_preds_(base, torch.Generator().manual_seed(6))
     out = {}
     for d in ("cpu", dev):
-        model = copy.deepcopy(base).to(d)
-        opt = build_optimizer(model, solver_config(small))
+        model = copy.deepcopy(base).to(d, dtype)
+        opt = build_optimizer(model, solver_config(cfg))
         opt.count = 1500  # past the warmup: every group has a learning rate
         state = TrainState(model, opt, ema_init(model), 0)
         p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
-        step = make_train_step(loss_config(small), "OptimizedRepresentation", (H, W), img,
-                               warp_impl="separable", device=d)
+        kw = dict(step_kw or {})
+        if teacher is not None:
+            kw["teacher"] = copy.deepcopy(teacher).to(d, dtype)
+        step = make_train_step(loss_config(cfg), model_kw.get("representation",
+                                                              "OptimizedRepresentation"),
+                               (H, W), REF_IMG, warp_impl="separable", device=d, **kw)
         state, parts = step(state, batch, 0)
         out[d] = {
             "parts": {k: v.item() for k, v in parts.items()},
@@ -756,23 +831,42 @@ def train_reference(dev):
         }
 
     def leafwise(key):
-        """Largest card-CPU difference of a leaf over its largest CPU entry
-        plus 1e-3 of the largest over all leaves."""
         got, want = out[dev][key], out["cpu"][key]
         top = max(v.abs().max().item() for v in want.values())
-        return max(((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-3 * top)).item()
-                   for k in want)
+        return max(((((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-3 * top)).item(),
+                     k) for k in want if held(k)), default=(0.0, None))
 
     c, g = out["cpu"]["parts"], out[dev]["parts"]
     errs = {"loss_rel": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
             "grads": leafwise("grads"), "updates": leafwise("delta"), "bn_stats": leafwise("bn")}
-    say("train_reference", parts_card=g, parts_cpu=c, errors=errs,
-        tolerance="loss 1e-4 relative; gradients and parameter updates 2e-2, BN statistics "
+    return c, g, errs
+
+
+STEP_TOLERANCE = ("loss 1e-4 relative; gradients and parameter updates 2e-2, BN statistics "
                   "2e-3, of each leaf's largest CPU entry plus 1e-3 of the largest over all "
-                  "leaves; positive anchors equal", tf32=tf32_state())
+                  "leaves; positive anchors equal")
+
+
+def step_within(errs) -> bool:
+    return (errs["loss_rel"] <= 1e-4 and errs["grads"][0] <= 2e-2
+            and errs["updates"][0] <= 2e-2 and errs["bn_stats"][0] <= 2e-3)
+
+
+def train_reference(dev):
+    """One train step of a shrunk detector at 128 px, batch 4, mosaic and
+    mixup at 1.0, on the card and on the CPU from the same weights."""
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    small = load_config("configs/gen1_optimized.py", overrides=SMALL)
+    hyp = dict(small["data_aug"], mosaic=1.0, mixup=1.0)
+    rng = np.random.default_rng(8)
+    batch = make_batch(fake_batch(9, n_windows=4, n_events=5000), fake_labels(rng, 4, REF_IMG),
+                       hyp, rng, REF_IMG)
+    c, g, errs = card_vs_cpu_step(dev, small, batch)
+    say("train_reference", parts_card=g, parts_cpu=c, errors=errs, tolerance=STEP_TOLERANCE,
+        tf32=tf32_state())
     require(g["num_pos"] == c["num_pos"] > 0, f"positive anchors {g['num_pos']} vs {c['num_pos']}")
-    require(errs["loss_rel"] <= 1e-4 and errs["grads"] <= 2e-2 and errs["updates"] <= 2e-2
-            and errs["bn_stats"] <= 2e-3, f"train step card vs CPU: {errs}")
+    require(step_within(errs), f"train step card vs CPU: {errs}")
 
 
 MOSAIC_POOL = 2  # partner-pool rows of the event_mosaic phase
@@ -2196,6 +2290,354 @@ def zoo_reference(dev):
                 for e in errs.values()), f"zoo card vs CPU: {errs}")
 
 
+def timed_variant_steps(label, state, step, batches):
+    """A warm-up step, then :func:`timed_steps` on the other batches.
+    Returns (state, what the ``variants`` line prints for this mode)."""
+    t = time.perf_counter()
+    state, parts = step(state, batches[0], 0)
+    warm = {k: v.item() for k, v in parts.items()}
+    warm_ms = (time.perf_counter() - t) * 1e3
+    p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    state, times, per_step, launches, peak = timed_steps(state, step, batches[1:])
+    changed = sum(not torch.equal(p0[n], p) for n, p in state.model.named_parameters())
+    out = {"mode": label, "warmup_step_ms": warm_ms, "warmup_step": warm, "ms_per_step": times,
+           "median_ms": statistics.median(times), "peak_mem_bytes": peak, "steps": per_step,
+           "launches": launches, "params_changed": changed, "params_total": len(p0)}
+    require(all(math.isfinite(v) for st in per_step for v in st.values()),
+            f"{label}: losses {warm} {per_step}")
+    require(all(st["num_pos"] > 0 for st in per_step), f"{label}: positive anchors {per_step}")
+    require(changed >= 0.9 * len(p0), f"{label}: {len(p0) - changed} parameters did not change")
+    return state, out
+
+
+def detect_backend_check(dev, tmp):
+    """``DetectBackend.detect`` on a deploy checkpoint (a train checkpoint
+    of the full-width detector with random pred convs, stripped) against
+    the Evaler's eval step and NMS on that detector itself, on one batch of
+    random 640² images (an NHWC view of a contiguous NCHW tensor, so both
+    feed the detector the same memory)."""
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.models.backend import DetectBackend
+    from event_representation_study_tpu_torch.ops.nms import non_max_suppression
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        Batch, TrainState, make_eval_step)
+    from event_representation_study_tpu_torch.train.checkpoint import (
+        save_checkpoint, strip_optimizer)
+    from event_representation_study_tpu_torch.train.ema import ema_init
+    from event_representation_study_tpu_torch.train.optim import build_optimizer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    cfg = load_config("configs/gen1_optimized.py")
+    model = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    randomize_preds_(model, torch.Generator(device=dev).manual_seed(10))
+    save_checkpoint(tmp / "train", TrainState(
+        model, build_optimizer(model, solver_config(cfg)), ema_init(model), 0), 0)
+    strip_optimizer(tmp / "train", tmp / "deploy")
+    t0 = time.perf_counter()
+    backend = DetectBackend(tmp / "deploy", "configs/gen1_optimized.py", device=dev)
+    load_s = time.perf_counter() - t0
+    x = torch.rand((B, 12, IMG, IMG), generator=torch.Generator(device=dev).manual_seed(9),
+                   device=dev)
+    images = x.permute(0, 2, 3, 1)
+    t0 = time.perf_counter()
+    dets, counts = backend.detect(images)
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    no_labels = Batch(images, None, np.zeros((B, 1)), np.zeros((B, 1, 4)), np.zeros((B, 1)))
+    step = make_eval_step(model, "OptimizedRepresentation", (H, W), IMG, device=dev)
+    want, want_n = non_max_suppression(step(None, no_labels), conf_thres=0.03, iou_thres=0.65)
+    err = float(np.abs(dets - want.cpu().numpy()).max())
+    out = {"load_s": load_s, "detect_ms": detect_ms, "detections_per_image": counts.tolist(),
+           "max_abs_err_vs_eval_step": err}
+    require(np.array_equal(counts, want_n.cpu().numpy()) and counts.min() > 0 and err <= 1e-5,
+            f"DetectBackend vs the eval step: {out}, eval step counts {want_n.tolist()}")
+    return out
+
+
+def export_check(dev, tmp):
+    """The full-width serving graph exported (``torch.export``), saved,
+    loaded and served 3 requests; K1 once a request; detections equal to
+    the eager ``make_server``'s on the same weights. Returns (the line's
+    fields, K1 launches)."""
+    import pathlib
+
+    from event_representation_study_tpu_torch.cli.infer import make_server
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.utils.config import load_config
+    from event_representation_study_tpu_torch.utils.export import (
+        build_serving_fn, export_serving_graph, load_serving_graph)
+
+    cfg = load_config("configs/gen1_optimized.py")
+    serve = make_server(cfg, "OptimizedRepresentation", H, W, IMG, 0.03, device=dev)
+    randomize_preds_(serve.model, torch.Generator(device=dev).manual_seed(1))
+    requests = [fake_batch(500 + 10 * r).to(dev).as_int32() for r in range(REQUESTS)]
+    path = pathlib.Path(tmp) / "serve.pt2"
+    t0 = time.perf_counter()
+    export_serving_graph(build_serving_fn(serve), requests[0], path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    graph = load_serving_graph(path)
+    load_s = time.perf_counter() - t0
+
+    def call(b):
+        with torch.inference_mode():
+            return graph(b.x, b.y, b.t, b.p, b.num)
+
+    call(requests[-1])  # warm-up
+    torch.cuda.synchronize()
+    fs.reset_launches()
+    times, outs = [], []
+    for b in requests:
+        t = time.perf_counter()
+        dets, n = call(b)
+        n.tolist()  # waits
+        times.append((time.perf_counter() - t) * 1e3)
+        outs.append((dets, n))
+    k1 = fs.LAUNCHES[fs.K1]
+    eager = [serve(b) for b in requests]
+    err = max((d - e).abs().max().item() for (d, _), (e, _) in zip(outs, eager))
+    counts = [n.tolist() for _, n in outs]
+    fields = {"export_s": export_s, "load_s": load_s, "file_bytes": path.stat().st_size,
+              "ms_per_request": times, "median_ms": statistics.median(times),
+              "detections_per_image": counts, "max_abs_err_vs_eager": err, "k1_launches": k1}
+    require(k1 == REQUESTS, f"exported graph: K1 launches {k1} for {REQUESTS} requests")
+    require(all(torch.equal(n, e) for (_, n), (_, e) in zip(outs, eager)) and err <= 1e-5,
+            f"exported graph vs eager serve: {fields}")
+    require(all(0 < c <= 300 for cs in counts for c in cs), f"exported graph counts {counts}")
+    return fields, k1
+
+
+def ptq_check(dev, tmp):
+    """``cli/train.py --fuse-ab --quant --calib`` at full width on the
+    trainer phase's synthetic splits: no training, ``ptq_ckpt`` written;
+    its int8 weights and scales equal to ``quantize_params`` of the same
+    weights on the CPU. Returns (the line's fields, K1 launches)."""
+    import pathlib
+
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.train.checkpoint import load_checkpoint
+    from event_representation_study_tpu_torch.utils.quantize import quantize_params
+
+    root = pathlib.Path(tmp) / "gen1"
+    root.mkdir()
+    _trainer_fixture(root)
+    fs.reset_launches()
+    roll.reset_launches()
+    t0 = time.perf_counter()
+    trainer = train_cli.main([
+        "--conf", "configs/gen1_optimized.py", "--data-path", str(root), "--batch-size", str(B),
+        "--img-size", str(IMG), "--num-events", str(N), "--output-dir", str(root / "out"),
+        "--fuse-ab", "--quant", "--calib", "--device", torch.device(dev).type])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    k1, k3 = fs.LAUNCHES[fs.K1], roll.LAUNCHES[roll.K3]
+    ptq = load_checkpoint(root / "out" / "ptq_ckpt")
+    t0 = time.perf_counter()
+    cpu_q, meta = quantize_params(copy.deepcopy(trainer.model).cpu())
+    cpu_s = time.perf_counter() - t0
+    card_q = {k: v for k, v in ptq["quantized"].items() if isinstance(v, dict)}
+    equal = all(torch.equal(card_q[k]["q"], v["q"]) and torch.equal(card_q[k]["scale"], v["scale"])
+                for k, v in cpu_q.items() if isinstance(v, dict))
+    expected_k1 = min(4, len(trainer.train_loader)) + len(trainer.val_loader)
+    fields = {"calib_s": calib_s, "quantized_weights": len(card_q), "cpu_quantize_s": cpu_s,
+              "int8_and_scales_equal_cpu": equal, "steps": trainer.state.step,
+              "activation_ranges": ptq["extra"]["activation_ranges"],
+              "metrics": ptq["extra"]["metrics"], "k1_launches": k1, "k3_launches": k3,
+              "k1_expected": expected_k1}
+    require(equal and len(card_q) == len(meta) > 100, f"PTQ card vs CPU: {fields}")
+    require(trainer.state.step == 0 and ptq["extra"]["activation_ranges"]["head_out"] > 0
+            and "AP" in ptq["extra"]["metrics"], f"PTQ calibration: {fields}")
+    require(k1 == expected_k1 and k3 == 0, f"PTQ launches: {fields}")
+    del trainer
+    return fields, k1
+
+
+def variants_phase(dev):
+    """The detector's training variants and deploy tools at the full width
+    of ``configs/gen1_optimized.py`` (batch 8 of 50,000-event windows at
+    640², float32): fuse-ab and distillation (``distill_feat``; the teacher
+    written as a train checkpoint and read back by
+    ``load_teacher_variables``) each a warm-up plus 3 ATSS and 3 TAL steps
+    with the separable warp (K1 once, K3 twice a step; the teacher's
+    BatchNorm statistics bit-unchanged); the learned representation (raw
+    events, flips only) a warm-up plus 6 steps and an eval batch (K1 and
+    K3 never); ``DetectBackend`` on a deploy checkpoint; PTQ through
+    ``cli/train.py``; the exported serving graph. Returns the K1 and K3
+    launches by path."""
+    import tempfile
+
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.ops.nms import non_max_suppression
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        TrainState, make_eval_step)
+    from event_representation_study_tpu_torch.train.checkpoint import (
+        load_model_variables, load_teacher_variables, save_checkpoint)
+    from event_representation_study_tpu_torch.train.ema import ema_init
+    from event_representation_study_tpu_torch.train.optim import build_optimizer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    n_steps = sum(TRAIN_STEPS.values())
+    k1, k3, lines = {}, {}, []
+
+    state, step, batches, info = train_setup(dev, n_steps + 1, model_kw={"fuse_ab": True},
+                                             step_kw={"mode": "fuseab"})
+    state, out = timed_variant_steps("fuseab", state, step, batches)
+    lines.append(dict(out, **info))
+    require(all(st["ab_num_pos"] > 0 for st in out["steps"]), "fuseab: ab positive anchors")
+    k1["variants_fuseab"], k3["variants_fuseab"] = out["launches"][fs.K1], out["launches"][roll.K3]
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+    cfg = load_config("configs/gen1_optimized.py")
+    with tempfile.TemporaryDirectory() as tmp:
+        import pathlib
+
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        # the teacher: the student's init (train_setup's seeds) plus noise of
+        # 5% of each leaf's spread. Distillation starts from a trained
+        # teacher; two unrelated random networks put the feature KD in a
+        # cliff regime, and random class preds make the class KD (summed
+        # over 8 x 8,400 anchors, times T^2) push the student's scores to
+        # 1.0 in one step, where the varifocal loss is log(0). The class
+        # preds start at zero weights and one bias value, so they get 5% of
+        # randomize_preds_'s weight scale and a class prior instead (biases
+        # -4.6 +- 0.75, as a detector trained on Gen1's cars and
+        # pedestrians has one): the class KD of two uniform score maps is
+        # float32 rounding about 0 (+-0.2 at this size); with this prior, ~2
+        teacher = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+        randomize_preds_(teacher, torch.Generator(device=dev).manual_seed(6), which="reg_pred")
+        g = torch.Generator(device=dev).manual_seed(7)
+        with torch.no_grad():
+            for name, p in teacher.named_parameters():
+                if ".cls_pred_" in name and name.endswith("weight"):
+                    p.normal_(0.0, 0.05 * p[0].numel() ** -0.5, generator=g)
+                elif ".cls_pred_" in name:
+                    p.add_(torch.tensor([0.75, -0.75], device=dev))
+                elif p.numel() > 1:
+                    p.add_(torch.randn(p.shape, generator=g, device=dev) * (0.05 * p.std()))
+        save_checkpoint(tmp / "teacher", TrainState(
+            teacher, build_optimizer(teacher, solver_config(cfg)), ema_init(teacher), 0), 0)
+        want = {k: v.clone() for k, v in teacher.state_dict().items()}
+        del teacher
+        teacher = build_model(cfg, 2, device=dev)
+        load_model_variables(teacher, load_teacher_variables(tmp / "teacher", dev))
+        teacher.requires_grad_(False)
+        teacher_s = time.perf_counter() - t0
+        require(all(torch.equal(want[k], v) for k, v in teacher.state_dict().items()
+                    if not k.endswith("num_batches_tracked")),
+                "the teacher read back is not the one written")
+        state, step, batches, info = train_setup(
+            dev, n_steps + 1, step_kw={"mode": "distill", "teacher": teacher,
+                                       "distill_feat": True, "max_epoch": 300})
+        bn0 = {k: v.clone() for k, v in teacher.state_dict().items()}
+        state, out = timed_variant_steps("distill", state, step, batches)
+        unchanged = all(torch.equal(bn0[k], v) for k, v in teacher.state_dict().items())
+        lines.append(dict(out, **info, teacher_checkpoint_s=teacher_s,
+                          teacher_state_bit_unchanged=unchanged))
+        require(unchanged, "the teacher's BatchNorm statistics changed")
+        require(all(st["kd_cls"] > 0 and st["kd_dfl"] > 0 and st["kd_cw"] > 0
+                    for st in out["steps"]),
+                f"distill: KD terms {out['steps']}")
+        k1["variants_distill"], k3["variants_distill"] = (out["launches"][fs.K1],
+                                                          out["launches"][roll.K3])
+        del state, step, batches, teacher
+        torch.cuda.empty_cache()
+        backend = detect_backend_check(dev, tmp)
+        torch.cuda.empty_cache()
+
+    learned = {"representation": "LearnedRepresentation", "img_size": IMG}
+    state, step, batches, info = train_setup(dev, n_steps + 1, model_kw=learned, plan=False)
+    state, out = timed_variant_steps("learned", state, step, batches)
+    vl = [n for n, _ in state.model.named_parameters() if n.startswith("quantization.")]
+    eval_step = make_eval_step(state.model, "LearnedRepresentation", (H, W), IMG, device=dev)
+    fs.reset_launches()
+    with torch.inference_mode():
+        preds = eval_step(None, batches[-1])
+        dets, counts = non_max_suppression(preds, conf_thres=0.03)
+    eval_k1 = fs.LAUNCHES[fs.K1]
+    lines.append(dict(out, **info, value_layer_params=len(vl), eval_preds_shape=list(preds.shape),
+                      eval_detections_per_image=counts.tolist(), eval_k1=eval_k1))
+    require(out["launches"][fs.K1] == 0 and out["launches"][roll.K3] == 0 and eval_k1 == 0,
+            f"learned: launches {out['launches']}, eval K1 {eval_k1}")
+    require(len(vl) == 6 and bool(torch.isfinite(preds).all()), "learned: value layer, eval preds")
+    k1["variants_learned"] = 0
+    del state, step, batches, preds
+    torch.cuda.empty_cache()
+
+    for n in lines:
+        per_step = 0 if n["mode"] == "learned" else 1
+        require(n["launches"][fs.K1] == per_step * n_steps
+                and n["launches"][roll.K3] == 2 * per_step * n_steps,
+                f"{n['mode']}: launches {n['launches']} for {n_steps} steps")
+    with tempfile.TemporaryDirectory() as tmp:
+        ptq, k1["variants_ptq"] = ptq_check(dev, tmp)
+        torch.cuda.empty_cache()
+        export, k1["variants_export"] = export_check(dev, tmp)
+    torch.cuda.empty_cache()
+    say("variants", batch=B, events_per_window=N, img=IMG, modes=lines, detect_backend=backend,
+        ptq=ptq, export=export, tf32=tf32_state(),
+        step_median_ms={n["mode"]: n["median_ms"] for n in lines},
+        peak_mem_bytes={n["mode"]: n["peak_mem_bytes"] for n in lines})
+    return k1, k3
+
+
+def variants_reference(dev):
+    """One step of a shrunk detector at REF_IMG px (batch 4) on the card and
+    on the CPU from the same weights, for each training variant: fuse-ab
+    (mosaic and mixup at 1.0, the separable warp), distill_ns (a YOLOv6s
+    student, a plain shrunk teacher; the same plan) and the learned
+    representation (raw events, flips only); the tolerances of
+    ``train_reference``. The learned step runs twice: in float32, held on
+    every leaf but the value layer's, and in float64, held on the value
+    layer's. Its input differs card vs CPU by rounding (the value layer's
+    products, index_add_'s atomics), where K1 makes ERGO-12 bit-equal, and
+    float32 rounding moves the value layer's bias gradients (sums of ~10^5
+    near-cancelling terms) by percents: one ulp on those weights does so
+    on the CPU alone."""
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    small = load_config("configs/gen1_optimized.py", overrides=SMALL)
+    hyp = dict(small["data_aug"], mosaic=1.0, mixup=1.0)
+    rng = np.random.default_rng(8)
+    blocks = fake_batch(9, n_windows=4, n_events=5000)
+    labels = fake_labels(rng, 4, REF_IMG)
+    planned = make_batch(blocks, labels, hyp, rng, REF_IMG)
+    flipped = flip_batch(blocks, labels, hyp, rng, REF_IMG)
+    teacher = build_model(small, 2, device="cpu", generator=torch.Generator().manual_seed(5))
+    randomize_preds_(teacher, torch.Generator().manual_seed(7))
+    ns = load_config("configs/gen1_optimized.py", overrides=SMALL + ["model.type=YOLOv6s"])
+    learned = {"representation": "LearnedRepresentation", "img_size": REF_IMG}
+
+    def value_layer(leaf):
+        return leaf.startswith("quantization.")
+
+    cases = {
+        "fuseab": (small, planned, {"fuse_ab": True}, {"mode": "fuseab"}, None,
+                   torch.float32, lambda leaf: True),
+        "distill_ns": (ns, planned, {"distill_ns": True},
+                       {"mode": "distill", "distill_feat": True}, teacher, torch.float32,
+                       lambda leaf: True),
+        "learned": (small, flipped, learned, {}, None, torch.float32,
+                    lambda leaf: not value_layer(leaf)),
+        "learned_value_layer": (small, flipped, learned, {}, None, torch.float64, value_layer),
+    }
+    results = {}
+    for name, (cfg, batch, model_kw, step_kw, t, dtype, held) in cases.items():
+        c, g, errs = card_vs_cpu_step(dev, cfg, batch, model_kw, step_kw, t, dtype, held)
+        results[name] = {"dtype": str(dtype), "parts_card": g, "parts_cpu": c, "errors": errs}
+    say("variants_reference", **results, tolerance=STEP_TOLERANCE, tf32=tf32_state())
+    for name, r in results.items():
+        g, c = r["parts_card"], r["parts_cpu"]
+        pos = [k for k in c if k.endswith("num_pos")]
+        require(all(g[k] == c[k] > 0 for k in pos), f"{name}: positive anchors {g} vs {c}")
+        require(step_within(r["errors"]), f"{name} step card vs CPU: {r['errors']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -2380,6 +2822,9 @@ def main() -> int:
     zoo_k1, zoo_rolls = zoo_phase(dev, {train_rolls})
     half_k1 = zoo_half_phase(dev)
     zoo_reference(dev)
+    # 23-24. the training variants and deploy tools; their shrunk steps card vs CPU
+    variant_k1, variant_k3 = variants_phase(dev)
+    variants_reference(dev)
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
@@ -2388,7 +2833,7 @@ def main() -> int:
                               "search": search_launches[fs.K1],
                               "gen1_published_format": published_launches,
                               "classify": classify_launches, "zoo": zoo_k1,
-                              "zoo_half": half_k1}
+                              "zoo_half": half_k1, **variant_k1}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
                               "search": search_launches[fs.K2]}
@@ -2411,7 +2856,8 @@ def main() -> int:
                                           "max_abs_err")}, "launches": classify_launches}
         entry["max_abs_err"] = max(v["max_abs_err"] for v in entry["by_shape"].values())
     k3["launches_by_path"] = {"train": train_launches["roll_rows"],
-                              "zoo": sum(r["launches"] for r in zoo_rolls.values())}
+                              "zoo": sum(r["launches"] for r in zoo_rolls.values()),
+                              **variant_k3}
     k3["launches"] = sum(k3["launches_by_path"].values())
     # the main figures stay those of the paper step (640²); each other shape
     # of the zoo's steps beside them, held in zoo_phase

@@ -10,7 +10,8 @@ checkpoint, with optional per-class PR/F1/confusion reporting
 Runs on ``--device cuda`` (the default; it raises without CUDA) or
 ``--device cpu``. ``--half`` runs the detector in bfloat16 (autocast over
 float32 weights, ``models/yolo.py``); the representation, the letterbox
-and what reaches NMS stay float32.
+and what reaches NMS stay float32. A config with the learned
+representation evaluates a detector that takes the raw events.
 """
 from __future__ import annotations
 
@@ -71,7 +72,8 @@ def main(args=None):
                               drop_last=False)
     model = build_model(cfg, num_classes=nc, num_channels=REPRESENTATION_CHANNELS.get(rep, 12),
                         device=device, generator=torch.Generator(device=device).manual_seed(0),
-                        dtype=torch.bfloat16 if args.half else torch.float32)
+                        dtype=torch.bfloat16 if args.half else torch.float32,
+                        representation=rep, img_size=img_size)
     if args.checkpoint:
         load_model_variables(model, model_variables(load_checkpoint(args.checkpoint, device)))
 

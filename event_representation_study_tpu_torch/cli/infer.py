@@ -36,14 +36,20 @@ class Server:
         self.conf_thres = conf_thres
         self.device = device
 
-    @torch.inference_mode()
-    def run(self, blocks: EventBlock):
-        """(rep (B, H, W, C), preds (B, A, 5+nc), dets, n)."""
-        rep = self.rep_fn(blocks.to(self.device))
+    def pipeline(self, blocks: EventBlock):
+        """(rep (B, H, W, C), preds (B, A, 5+nc), dets, n) of ``blocks`` on
+        the model's device: the serving function, which
+        ``utils/export.py`` also traces."""
+        rep = self.rep_fn(blocks)
         imgs = letterbox_image(rep, self.img_size) / 255.0  # NHWC
         preds = self.model(imgs.permute(0, 3, 1, 2))
         dets, n = non_max_suppression(preds, conf_thres=self.conf_thres)
         return rep, preds, dets, n
+
+    @torch.inference_mode()
+    def run(self, blocks: EventBlock):
+        """:meth:`pipeline` of ``blocks`` moved to the device."""
+        return self.pipeline(blocks.to(self.device))
 
     def __call__(self, blocks: EventBlock):
         return self.run(blocks)[2:]

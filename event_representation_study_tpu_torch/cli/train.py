@@ -7,9 +7,12 @@ equivalent of ev-YOLOv6/tools/train.py):
 
 ``--testing`` skips training and evaluates on the test split (the
 reference's train.py --testing path). Runs on ``--device cuda`` (the
-default; it raises without CUDA) or ``--device cpu``. Flags of paths that
-are not ported (``--fuse-ab``, ``--distill``, ``--quant --calib``,
-``--steps-per-dispatch`` > 1, ``--plot-images``) reach the Trainer, which
+default; it raises without CUDA) or ``--device cpu``. The training
+variants of tools/train.py:140-161: ``--fuse-ab``, ``--distill`` (with
+``--distill-feat``, ``--temperature``, ``--teacher-ckpt``), and
+``--quant --calib`` (PTQ calibration instead of training; ``--calib``
+alone refuses). Flags of paths that are not ported
+(``--steps-per-dispatch`` > 1, ``--plot-images``) reach the Trainer, which
 raises naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -63,14 +66,24 @@ def get_args_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--override", nargs="*", default=[],
                    help="dotted-key config overrides, e.g. model.depth_multiple=0.5")
-    p.add_argument("--fuse-ab", action="store_true", help="not ported: ROADMAP M14")
-    p.add_argument("--distill", action="store_true", help="not ported: ROADMAP M14")
-    p.add_argument("--distill-feat", action="store_true", help="with --distill")
-    p.add_argument("--temperature", type=float, default=20.0, help="with --distill")
-    p.add_argument("--teacher-ckpt", type=str, default=None, help="with --distill")
-    p.add_argument("--quant", action="store_true", help="PTQ mode (not ported: ROADMAP M14)")
+    p.add_argument("--fuse-ab", action="store_true",
+                   help="add the anchor-base auxiliary training branch "
+                        "(fuse_ab head; engine.py:242-256)")
+    p.add_argument("--distill", action="store_true",
+                   help="knowledge distillation against a frozen teacher "
+                        "(engine.py:226-241); excludes --fuse-ab")
+    p.add_argument("--distill-feat", action="store_true",
+                   help="also distill feature maps (channel-wise KD)")
+    p.add_argument("--temperature", type=float, default=20.0,
+                   help="distillation temperature (train.py:150)")
+    p.add_argument("--teacher-ckpt", type=str, default=None,
+                   help="teacher checkpoint (a train checkpoint or a stripped "
+                        "deploy checkpoint); without it a fresh init")
+    p.add_argument("--quant", action="store_true",
+                   help="PTQ mode (with --calib: calibrate and exit, train.py:144-145)")
     p.add_argument("--calib", action="store_true",
-                   help="in-trainer PTQ calibration (not ported: ROADMAP M14)")
+                   help="in-trainer PTQ calibration, then exit (engine.py:916-942); "
+                        "requires --quant")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without CUDA) or cpu")
     return p
@@ -85,8 +98,9 @@ def find_latest_checkpoint(root="runs/train") -> str:
 
 
 def main(args=None):
-    """Train (returns the :class:`..train.engine.Trainer` after its last
-    epoch) or, with ``--testing``, evaluate (returns the stats)."""
+    """Train, or calibrate with ``--quant --calib`` (returns the
+    :class:`..train.engine.Trainer` after it), or, with ``--testing``,
+    evaluate (returns the stats)."""
     t_main = time.time()
     parser = get_args_parser()
     args = parser.parse_args(args)
@@ -118,8 +132,10 @@ def main(args=None):
         steps_per_dispatch=args.steps_per_dispatch,
         ema_cadence=args.ema_cadence,
         fuse_ab=args.fuse_ab,
-        distill=args.distill,  # raises: --distill-feat, --temperature and
-        # --teacher-ckpt only matter with it
+        distill=args.distill,
+        distill_feat=args.distill_feat,
+        temperature=args.temperature,
+        teacher_ckpt=args.teacher_ckpt,
         quant_calib=bool(args.quant and args.calib),
         # the reference's --testing evaluates the TEST split
         # (engine.py:603-623 task="test")

@@ -8,7 +8,14 @@ cls_scores, reg_distri), eval mode the decoded (B, A, 5+nc).
 The registries hold every name of the JAX package's: the backbones
 (``SwinTransformerV2`` is the reference's name for the CSP conv network,
 ``SwinTransformerV2ViT`` the genuine transformer) and the 9 necks. The
-fuse-ab and distillation heads are ROADMAP M14.
+head is ``EffiDeHead``, or with ``fuse_ab`` ``EffiDeHeadFuseAB`` (anchor
+priors from ``model.head.anchors_init``, else :func:`_default_anchors`), or
+with ``distill_ns`` ``EffiDeHeadDistillNS``.
+
+``representation="LearnedRepresentation"`` makes the detector take raw
+event blocks: a trainable ``QuantizationLayer`` (6 bins, 12 channels) at the
+sensor size of ``data.height`` x ``data.width``, then the letterbox to
+``img_size`` with pad value 0 and no /255, then the backbone.
 
 ``dtype=torch.bfloat16`` is the counterpart of Flax ``dtype=jnp.bfloat16``
 with float32 parameters: the forward runs under ``torch.autocast``, which
@@ -37,7 +44,9 @@ from .backbones import (
     Lite_EffiBackbone,
     ResNet50Backbone,
 )
-from .heads import EffiDeHead
+from ..ops.image import letterbox_image
+from .heads import EffiDeHead, EffiDeHeadDistillNS, EffiDeHeadFuseAB
+from .learned_repr import QuantizationLayer
 from .necks import CSPRepBiFPANNeck, CSPRepBiFPANNeck_P6, Lite_EffiNeck, PANNeckUpcat
 from .swin_vit import SwinTransformerV2ViT
 
@@ -116,19 +125,41 @@ class Detector(nn.Module):
                  reg_max: int = 16, use_dfl: bool = True, csp_e: float = 0.5,
                  basic_mode: str = "conv_silu", backbone: str = "CSPBackboneP6",
                  neck: str = "CSPRepBiFPANNeck_P6", remat: bool = False,
-                 space_to_depth: bool = False, dtype: torch.dtype = torch.float32):
+                 space_to_depth: bool = False, dtype: torch.dtype = torch.float32,
+                 head_type: str = "effidehead",
+                 anchors_init: Optional[Sequence[Sequence[float]]] = None,
+                 quantization_bins: Optional[int] = None, sensor_hw=(240, 304),
+                 img_size: int = 640):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.dtype = dtype
+        self.img_size = img_size
+        if quantization_bins is not None:
+            self.quantization = QuantizationLayer(quantization_bins, *sensor_hw)
         self.backbone = build_backbone(backbone, in_channels, channels_list, num_repeats,
                                        basic_mode, csp_e, remat, space_to_depth)
         self.neck = NECKS[neck](self.backbone.out_channels, channels_list, num_repeats,
                                 basic_mode, csp_e)
-        self.head = EffiDeHead(num_classes, head_in_channels, self.neck.out_channels,
-                               strides, reg_max, use_dfl)
+        feat = self.neck.out_channels
+        if head_type == "fuseab":
+            self.head = EffiDeHeadFuseAB(num_classes, head_in_channels, feat, anchors_init,
+                                         strides, reg_max, use_dfl)
+        elif head_type == "distill_ns":
+            self.head = EffiDeHeadDistillNS(num_classes, head_in_channels, feat, strides,
+                                            reg_max)
+        elif head_type == "effidehead":
+            self.head = EffiDeHead(num_classes, head_in_channels, feat, strides, reg_max,
+                                   use_dfl)
+        else:
+            raise ValueError(f"unknown head_type {head_type!r}")
 
     def forward(self, x):
+        """``x``: (B, C, S, S) images, or an ``EventBlock`` with the learned
+        representation."""
+        if hasattr(self, "quantization"):
+            x = letterbox_image(self.quantization(x), self.img_size, pad_value=0.0)
+            x = x.permute(0, 3, 1, 2)
         with torch.autocast(x.device.type, torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
             return self.head(self.neck(self.backbone(x)))
@@ -175,15 +206,16 @@ def build_model(
     dtype: torch.dtype = torch.float32,
     fuse_ab: bool = False,
     distill_ns: bool = False,
+    representation: Optional[str] = None,
+    img_size: Optional[int] = None,
 ) -> Detector:
     """Build from an experiment-config dict (``cfg['model']`` with
     backbone/neck/head sub-dicts, ``model.remat``,
     ``model.backbone.space_to_depth``), on ``device`` (``cuda`` unless the
     caller asks for ``cpu``; ``meta`` builds shapes only), initialised from
-    ``generator`` when one is given, computing in ``dtype``."""
-    if fuse_ab or distill_ns:
-        raise NotImplementedError(
-            "the fuse-ab and distill_ns heads are not ported (ROADMAP M14)")
+    ``generator`` when one is given, computing in ``dtype``; the head and
+    the learned representation as the module docstring says (``img_size``
+    defaults to ``data.img_size``, 640)."""
     m = cfg["model"]
     depth_mul = m.get("depth_multiple", 1.0)
     width_mul = m.get("width_multiple", 1.0)
@@ -201,6 +233,14 @@ def build_model(
         for r in list(bb["num_repeats"]) + list(nk["num_repeats"])
     ]
     head_in = [_scale(c, width_mul) for c in hd["in_channels"]]
+    strides = tuple(hd.get("strides", (8, 16, 32, 64)))
+    anchors = None
+    if fuse_ab:
+        anchors = (tuple(tuple(a) for a in hd["anchors_init"])
+                   if isinstance(hd.get("anchors_init"), (list, tuple))
+                   else _default_anchors(strides))
+    data = cfg.get("data", {})
+    learned = representation == "LearnedRepresentation"
     with torch.device(resolve_device(device)):
         model = Detector(
             in_channels=num_channels,
@@ -208,7 +248,7 @@ def build_model(
             num_repeats=repeats,
             num_classes=num_classes,
             head_in_channels=head_in,
-            strides=tuple(hd.get("strides", (8, 16, 32, 64))),
+            strides=strides,
             reg_max=hd.get("reg_max", 16),
             use_dfl=hd.get("use_dfl", True),
             csp_e=bb.get("csp_e", 0.5),
@@ -218,7 +258,20 @@ def build_model(
             remat=bool(m.get("remat", False)),
             space_to_depth=bool(bb.get("space_to_depth", False)),
             dtype=dtype,
+            head_type="fuseab" if fuse_ab else "distill_ns" if distill_ns else "effidehead",
+            anchors_init=anchors,
+            quantization_bins=6 if learned else None,
+            sensor_hw=(data.get("height", 240), data.get("width", 304)),
+            img_size=img_size or data.get("img_size", 640),
         )
     if generator is not None:
         init_weights_(model, generator)
     return model
+
+
+def _default_anchors(strides):
+    """Per-level (w, h) priors of the fuse-ab branch when the config gives
+    none (the study's configs are anchor-free): three a level, at 2.5, 5 and
+    8 times the stride, as the JAX package draws them; they shape only the
+    train-time auxiliary branch."""
+    return tuple((2.5 * s, 2.5 * s, 5.0 * s, 4.0 * s, 8.0 * s, 7.0 * s) for s in strides)

@@ -14,6 +14,13 @@ Pipeline per batch:
    :func:`segment_reduce_sorted_plain` (``index_add_`` and
    ``scatter_reduce_("amax")``).
 
+The reduction is registered as the operator
+``torch.ops.ers.segment_reduce_sorted`` (:func:`_reduce_op`): its fake
+version gives the output shapes, so ``torch.export`` records K1/K2 as one
+node of a serving graph (``utils/export.py``), and a loaded graph calls the
+same implementation, which launches the kernel on a CUDA tensor (counting
+the launch) and runs the plain version on a CPU tensor.
+
 The kernel is compiled for at most ``KS_MAX`` sum and ``KM_MAX`` max
 columns. Wider tables (a 12-channel MDES table of variances needs 36 sum
 columns) are cut into column groups that fit (:func:`column_groups`), each
@@ -105,12 +112,13 @@ def segment_reduce_sorted(
     _check(seg_s, vs, vm)
     if vm is not None and vm.shape[1] == 0:
         vm = None
-    if vs.is_cuda:
-        reduce = _launch
-    elif vs.device.type == "cpu":
-        reduce = segment_reduce_sorted_plain
-    else:
+    if not (vs.is_cuda or vs.device.type == "cpu"):
         raise ValueError(f"no kernel for device {vs.device}")
+
+    def reduce(seg_s, vs, vm, num_segments):
+        sums, maxes = _reduce_op(seg_s, vs, vm, num_segments)
+        return sums, maxes if vm is not None else None
+
     groups = column_groups(vs.shape[1], 0 if vm is None else vm.shape[1])
     if len(groups) == 1:
         return reduce(seg_s, vs, vm, num_segments)
@@ -126,6 +134,28 @@ def segment_reduce_sorted(
         if g_maxes is not None:
             maxes.append(g_maxes)
     return torch.cat(sums, dim=2), torch.cat(maxes, dim=2) if maxes else None
+
+
+@torch.library.custom_op("ers::segment_reduce_sorted", mutates_args=(),
+                         device_types=("cpu", "cuda"))
+def _reduce_op(seg_s: torch.Tensor, vs: torch.Tensor, vm: Optional[torch.Tensor],
+               num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch's reduction: the kernel for a CUDA tensor, the plain
+    version for a CPU tensor. The maxes are (B, S, 0) without ``vm``."""
+    if vs.is_cuda:
+        sums, maxes = _launch(seg_s, vs, vm, num_segments)
+    else:
+        sums, maxes = segment_reduce_sorted_plain(seg_s, vs, vm, num_segments)
+    if maxes is None:
+        maxes = sums.new_empty((vs.shape[0], num_segments, 0))
+    return sums, maxes
+
+
+@_reduce_op.register_fake
+def _(seg_s, vs, vm, num_segments):
+    km = 0 if vm is None else vm.shape[1]
+    return (vs.new_empty((vs.shape[0], num_segments, vs.shape[1])),
+            vs.new_empty((vs.shape[0], num_segments, km)))
 
 
 def _launch(seg_s, vs, vm, num_segments: int):

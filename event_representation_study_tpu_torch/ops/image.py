@@ -26,8 +26,11 @@ def letterbox_geometry(
     return r, (new_unpad[1], new_unpad[0]), (dw, dh)
 
 
-def letterbox_image(img: torch.Tensor, new_shape: int) -> torch.Tensor:
-    """(H, W, C) or (B, H, W, C) -> square ``new_shape`` letterboxed.
+def letterbox_image(img: torch.Tensor, new_shape: int,
+                    pad_value: float = PAD_VALUE) -> torch.Tensor:
+    """(H, W, C) or (B, H, W, C) -> square ``new_shape`` letterboxed, the
+    border filled with ``pad_value`` (114 on the 0..255 scale; the learned
+    representation pads with 0).
 
     Bilinear with half-pixel centres and no antialiasing, which equals
     ``jax.image.resize(..., "linear")`` when upsampling (the Gen1 path:
@@ -44,7 +47,7 @@ def letterbox_image(img: torch.Tensor, new_shape: int) -> torch.Tensor:
     bottom = new_shape - nh - top
     left = int(round(dw - 0.1))
     right = new_shape - nw - left
-    x = F.pad(x, (left, right, top, bottom), value=PAD_VALUE)
+    x = F.pad(x, (left, right, top, bottom), value=pad_value)
     out = x.permute(0, 2, 3, 1)
     return out if batched else out[0]
 

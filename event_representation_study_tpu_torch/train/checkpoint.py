@@ -12,7 +12,9 @@ dict (engine.py:291-297). :func:`strip_optimizer` rewrites one to the EMA
 variables only, ``{"variables"}``, for deployment (checkpoint.py:50-64).
 A model without an EMA (the classifier, ``train/classifier.py``) saves
 ``{"model", "optimizer", "step", "epoch", "extra"}`` through
-:func:`save_model_checkpoint`.
+:func:`save_model_checkpoint`; PTQ calibration writes
+:func:`save_quantized_checkpoint`'s layout, and a distillation teacher reads
+either layout of a detector through :func:`load_teacher_variables`.
 """
 from __future__ import annotations
 
@@ -102,6 +104,26 @@ def load_model_variables(model: nn.Module, variables: Dict[str, torch.Tensor]) -
         raise KeyError(f"checkpoint does not fit the model: missing {missing[:5]}, "
                        f"unexpected {unexpected[:5]}")
     return model
+
+
+def load_teacher_variables(path, map_location="cpu") -> Dict[str, torch.Tensor]:
+    """The weights of a frozen distillation teacher (engine.py:660-673): a
+    stripped deploy checkpoint's variables, else a train checkpoint's EMA
+    variables (as eval reads them), else its model state dict."""
+    ckpt = load_checkpoint(path, map_location)
+    if "variables" in ckpt:
+        return ckpt["variables"]
+    if ckpt.get("ema", {}).get("variables") is not None:
+        return ckpt["ema"]["variables"]
+    return ckpt["model"]
+
+
+def save_quantized_checkpoint(path, qstate: dict, extra: Optional[dict] = None) -> None:
+    """A PTQ checkpoint, ``{"quantized", "epoch", "extra"}``: the
+    ``utils/quantize.py::quantize_params`` state (int8 weights with their
+    scales, every other tensor as it is), epoch 0, and ``extra`` (the
+    activation ranges and the metrics of the fake-quantised model)."""
+    _save({"quantized": qstate, "epoch": 0, "extra": extra or {}}, path)
 
 
 def strip_optimizer(path, out_path) -> None:

@@ -1,5 +1,5 @@
-"""Training engine (the JAX package's ``train/engine.py::Trainer``, plain
-mode on one device; the equivalent of ev-YOLOv6/yolov6/core/engine.py).
+"""Training engine (the JAX package's ``train/engine.py::Trainer`` on one
+device; the equivalent of ev-YOLOv6/yolov6/core/engine.py).
 
 Per epoch: the loader's batches go through the train step (events ->
 augmented representation -> forward -> assign -> loss -> backward -> SGD ->
@@ -8,6 +8,13 @@ and the reference's eval cadence applies: every epoch for the first
 ``eval_interval_first`` epochs, then every ``eval_interval``-th and the last
 (engine.py:165-195). Evaluation runs on the EMA weights and writes the
 ``last_ckpt`` and, on a better AP, the ``best_ckpt`` (engine.py:272-318).
+
+The JAX Trainer's variants: ``fuse_ab`` (the anchor-base auxiliary head and
+loss), ``distill`` (a frozen teacher of the same config, loaded from
+``teacher_ckpt`` or, without one, initialised from ``seed + 1``; the
+nano/small models, ``model.type`` YOLOv6n/s, take the distill_ns head),
+``quant_calib`` (:meth:`Trainer.calibrate`: PTQ instead of training) and the
+learned representation (raw events into the detector; flips only).
 """
 from __future__ import annotations
 
@@ -21,13 +28,19 @@ from .. import resolve_device
 from ..data.gen1 import Gen1H5
 from ..data.loader import EventBatchLoader
 from ..models import build_model
+from ..models.yolo import init_weights_
 from ..ops.warp import separable_hyp_eligible
-from ..parallel.train_step import init_train_state, make_train_step
+from ..parallel.train_step import LEARNED, init_train_state, make_train_step
 from ..reps.dispatch import REPRESENTATION_CHANNELS
 from ..reps.event_mosaic import supports_event_mosaic
 from ..utils.logging import get_logger
 from ..utils.observability import MultiWriter
-from .checkpoint import save_checkpoint
+from .checkpoint import (
+    load_model_variables,
+    load_teacher_variables,
+    save_checkpoint,
+    save_quantized_checkpoint,
+)
 from .evaler import Evaler
 from .losses import LossConfig
 from .optim import SolverConfig, accumulation_steps, build_optimizer, with_accumulation
@@ -36,21 +49,18 @@ LOGGER = get_logger("engine")
 
 
 def _unported(data_type: str, representation: Optional[str], fuse_ab: bool, distill: bool,
-              quant_calib: bool, steps_per_dispatch: int, ema_cadence: str,
+              augment: bool, steps_per_dispatch: int, ema_cadence: str,
               plot_images: bool) -> None:
     if distill and fuse_ab:
         # engine.py:78-80: "Distill models should turn off the fuse_ab"
         raise ValueError("distill and fuse_ab are mutually exclusive")
+    if representation == LEARNED and augment:
+        raise ValueError("strong aug warps representation images; the learned "
+                         "representation consumes raw events (use flips only)")
     if data_type == "images":
         raise NotImplementedError("image-folder datasets are not ported (ROADMAP M19)")
-    if fuse_ab or distill:
-        raise NotImplementedError("fuse_ab and distill training are not ported (ROADMAP M14)")
-    if quant_calib:
-        raise NotImplementedError("PTQ calibration is not ported (ROADMAP M14)")
     if steps_per_dispatch > 1 or ema_cadence != "step":
         raise NotImplementedError("multi-step dispatch is not ported (ROADMAP M7)")
-    if representation == "LearnedRepresentation":
-        raise NotImplementedError("LearnedRepresentation is not ported (ROADMAP M14)")
     if plot_images:
         raise NotImplementedError("train/val plots are not ported (ROADMAP M19, utils/viz)")
 
@@ -76,6 +86,9 @@ class Trainer:
         steps_per_dispatch: int = 1,
         fuse_ab: bool = False,
         distill: bool = False,
+        distill_feat: bool = False,
+        temperature: float = 20.0,
+        teacher_ckpt: Optional[str] = None,
         quant_calib: bool = False,
         aug_mode: str = "auto",
         ema_cadence: str = "step",
@@ -84,15 +97,14 @@ class Trainer:
     ):
         """The JAX Trainer's arguments, plus ``device`` (``cuda`` unless the
         caller asks for ``cpu``); ``img_size`` defaults to the config's
-        ``data.img_size`` (640, or 576 for the ResNet and Swin configs).
-        Without the distillation settings
-        (``distill_feat``, ``temperature``, ``teacher_ckpt``), which only
-        matter with ``distill``, and ``distill`` is not ported."""
+        ``data.img_size`` (640, or 576 for the ResNet and Swin configs)."""
         data = cfg.get("data", {})
         self.data_type = data.get("type", "gen1")
         self.representation = data.get("representation", "OptimizedRepresentation")
-        _unported(self.data_type, self.representation, fuse_ab, distill, quant_calib,
+        _unported(self.data_type, self.representation, fuse_ab, distill, augment,
                   int(steps_per_dispatch), ema_cadence, plot_images)
+        self.learned = self.representation == LEARNED
+        self.quant_calib = quant_calib
         self.device = resolve_device(device)
         self.cfg = cfg
         self.epochs = epochs
@@ -153,7 +165,8 @@ class Trainer:
             round(self.solver_cfg.warmup_epochs * len(self.train_loader)), 1000)
 
         if aug_mode == "auto":
-            aug_mode = "event" if supports_event_mosaic(self.representation) else "image"
+            aug_mode = ("event" if not self.learned and supports_event_mosaic(self.representation)
+                        else "image")
             LOGGER.info("aug_mode auto -> %s", aug_mode)
         self.aug_mode = aug_mode
         # image executor: the separable two-pass warp whenever the hyp ranges
@@ -164,15 +177,37 @@ class Trainer:
                 warp_impl = "separable"
             LOGGER.info("image warp executor: %s", warp_impl)
         self.warp_impl = warp_impl
-        self.train_step = make_train_step(
-            self.loss_cfg, self.representation, rep_hw=(self.train_ds.height, self.train_ds.width),
-            img_size=img_size, aug_mode=aug_mode, warp_impl=warp_impl, device=self.device,
-        )
 
         generator = torch.Generator(device=self.device).manual_seed(seed)
         channels = REPRESENTATION_CHANNELS.get(self.representation, 12)  # the input follows the rep
-        self.model = build_model(cfg, num_classes=nc, num_channels=channels,
-                                 device=self.device, generator=generator)
+        # the distill_ns head only for the nano/small families (engine.py:69-73)
+        self.distill_ns = bool(distill and cfg["model"].get("type") in ("YOLOv6n", "YOLOv6s"))
+        model_kw = dict(num_classes=nc, num_channels=channels, device=self.device,
+                        representation=self.representation, img_size=img_size)
+        self.model = build_model(cfg, generator=generator, fuse_ab=fuse_ab,
+                                 distill_ns=self.distill_ns, **model_kw)
+        # the frozen teacher: the same config with the plain head, in
+        # batch-statistics mode with its statistics left as they are
+        # (get_teacher_model, engine.py:660-673)
+        self.teacher = None
+        if distill:
+            self.teacher = build_model(cfg, **model_kw)
+            if teacher_ckpt:
+                load_model_variables(self.teacher,
+                                     load_teacher_variables(teacher_ckpt, self.device))
+            else:
+                LOGGER.warning("distill without --teacher-ckpt: the teacher is a fresh init "
+                               "(seed + 1; fixture/debug mode only)")
+                init_weights_(self.teacher,
+                              torch.Generator(device=self.device).manual_seed(seed + 1))
+            self.teacher.requires_grad_(False)
+        self.train_mode = "distill" if distill else "fuseab" if fuse_ab else "plain"
+        self.train_step = make_train_step(
+            self.loss_cfg, self.representation, rep_hw=(self.train_ds.height, self.train_ds.width),
+            img_size=img_size, mode=self.train_mode, aug_mode=aug_mode, warp_impl=warp_impl,
+            device=self.device, teacher=self.teacher, max_epoch=epochs,
+            temperature=temperature, distill_feat=distill_feat,
+        )
         tx = with_accumulation(build_optimizer(self.model, self.solver_cfg), self.accumulate,
                                warmup_steps=self.accum_warmup_steps)
         self.state = init_train_state(self.model, tx)
@@ -209,7 +244,42 @@ class Trainer:
             self.train_loader.hyp["mixup"] = 0.0
             LOGGER.info("epoch %d: strong aug (mosaic/mixup) stopped", epoch)
 
+    def calibrate(self, num_batches: int = 4, percentile: Optional[float] = None):
+        """In-trainer PTQ (the reference's --quant --calib flow,
+        engine.py:916-942, train.py:258-259): the decoded head output's
+        range over ``num_batches`` training batches, the weights quantized
+        to int8 per output channel (``ptq.sensitive_layers_skip`` of the
+        config skipped by Flax path), the model evaluated with the
+        fake-quantised weights, and ``ptq_ckpt`` written with the quantized
+        state, the ranges and the metrics. Returns (ranges, stats)."""
+        from ..utils.quantize import calibrate_activations, fake_quant_params, quantize_params
+
+        sensitive = set(self.cfg.get("ptq", {}).get("sensitive_layers_skip", []) or [])
+
+        def skip(name: str) -> bool:
+            return any(s in name for s in sensitive)
+
+        batches = []
+        for i, (batch, _) in enumerate(self.train_loader):
+            if i >= num_batches:
+                break
+            batches.append(batch)
+        eval_step = self.evaler._eval_step
+        ranges = calibrate_activations(lambda v, b: {"head_out": eval_step(v, b)}, None,
+                                       batches, percentile=percentile)
+        qstate, _ = quantize_params(self.model, skip=skip)
+        stats = self.evaler.run(fake_quant_params(self.model, skip=skip))
+        LOGGER.info("PTQ calibrated: %d activation ranges, eval %s", len(ranges), stats)
+        save_quantized_checkpoint(self.output_dir / "ptq_ckpt", qstate, extra={
+            "activation_ranges": ranges,
+            "metrics": {k: float(v) for k, v in stats.items() if isinstance(v, (int, float))}})
+        return ranges, stats
+
     def train(self):
+        """Train for the epochs left; with ``quant_calib``, calibrate
+        instead and return :meth:`calibrate`'s result."""
+        if self.quant_calib:  # --quant --calib: calibrate and exit (train.py:258-259)
+            return self.calibrate()
         for epoch in range(self.start_epoch, self.epochs):
             self.prepare_for_epoch(epoch)
             t0 = time.time()

@@ -9,7 +9,7 @@ enter as mask-weighted dense sums.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -17,6 +17,20 @@ import torch.nn.functional as F
 from ..ops.boxes import bbox2dist, dist2bbox, iou_loss
 from .anchors import generate_anchors_train
 from .assigners import atss_assigner, task_aligned_assigner
+
+
+class LossAux(NamedTuple):
+    """Intermediates that the distillation objective reuses
+    (``train/losses_variants.py``): it shares the base loss's assigner
+    pass."""
+
+    raw_cls: torch.Tensor  # unweighted scalars
+    raw_iou: torch.Tensor
+    raw_dfl: torch.Tensor
+    fg_mask: torch.Tensor  # (B, A) bool
+    bbox_weight: torch.Tensor  # (B, A)
+    denom: torch.Tensor  # the target-scores-sum guard
+    target_bboxes: torch.Tensor  # (B, A, 4) assigned boxes in grid units
 
 
 class LossConfig(NamedTuple):
@@ -73,7 +87,10 @@ def detection_loss(
     feat_shapes: Sequence[Tuple[int, int]],
     epoch: int,
     cfg: LossConfig,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    return_aux: bool = False,
+):
+    """``(loss, parts)``, and the :class:`LossAux` third with
+    ``return_aux``."""
     _, pred_scores, pred_distri = outputs
     dev = pred_scores.device
     anchors, anchor_points, n_anchors_list, stride_tensor = generate_anchors_train(
@@ -128,4 +145,7 @@ def detection_loss(
         "cls": cfg.weight_class * loss_cls,
         "num_pos": fg_mask.sum().to(torch.float32),
     }
+    if return_aux:
+        return loss, parts, LossAux(loss_cls, loss_iou, loss_dfl, fg_mask, bbox_weight, denom,
+                                    target_bboxes)
     return loss, parts

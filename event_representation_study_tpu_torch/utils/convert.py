@@ -21,6 +21,11 @@ inverse of the JAX package's ``utils/torch_convert.py``:
 - everything else (biases, BottleRep ``alpha`` (1,), Swin ``logit_scale``
   (h, 1, 1)) as is
 
+The variant heads and the learned representation need no rules of their
+own: the fuse-ab head's ``cls_pred_ab_i`` / ``reg_pred_ab_i`` and the
+distill_ns head's ``reg_pred_dist_i`` are 1x1 convs, and the quantization
+layer's ``quantization/value_layer/mlp_i`` are Dense layers.
+
 The result loads with ``model.load_state_dict(sd, strict=True)``.
 """
 from __future__ import annotations
@@ -76,6 +81,36 @@ def flax_to_torch(variables: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _to_flax(name: str, arr: np.ndarray):
+    """(Flax path ``params/a/b/kernel`` or ``batch_stats/a/b/mean``, the
+    array in Flax layout) of one port tensor; (None, arr) for
+    ``num_batches_tracked``, which has no Flax counterpart."""
+    *mod, leaf = name.split(".")
+    coll = "params"
+    if leaf == "num_batches_tracked":
+        return None, arr
+    if leaf in ("running_mean", "running_var"):
+        coll, leaf = "batch_stats", leaf[len("running_"):]
+    elif leaf == "weight" and arr.ndim == 4:
+        if mod[-1] == "upsample":  # transpose conv
+            arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        else:
+            arr = arr.transpose(2, 3, 1, 0)
+        leaf = "kernel"
+    elif leaf == "weight" and arr.ndim == 2:  # Linear
+        arr, leaf = arr.T, "kernel"
+    elif leaf == "weight":  # the only 1-d weights are BatchNorm and LayerNorm scales
+        leaf = "scale"
+    return "/".join([coll, *mod, leaf]), arr
+
+
+def flax_param_path(name: str, ndim: int) -> str:
+    """The Flax path within ``params`` (``a/b/kernel``) of the port
+    parameter ``name`` (``a.b.weight``) of ``ndim`` dimensions: the names a
+    config's ``ptq.sensitive_layers_skip`` matches in both packages."""
+    return _to_flax(name, np.zeros((1,) * ndim, np.float32))[0].split("/", 1)[1]
+
+
 def to_flax_leaves(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Port tensors named as in ``state_dict()`` or ``named_parameters()``
     (parameters, their gradients, BatchNorm statistics, EMA entries) ->
@@ -84,22 +119,7 @@ def to_flax_leaves(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
     skipped."""
     out: Dict[str, np.ndarray] = {}
     for name, t in tensors.items():
-        *mod, leaf = name.split(".")
-        arr = t.detach().cpu().to(torch.float32).numpy()
-        coll = "params"
-        if leaf == "num_batches_tracked":
-            continue
-        if leaf in ("running_mean", "running_var"):
-            coll, leaf = "batch_stats", leaf[len("running_"):]
-        elif leaf == "weight" and arr.ndim == 4:
-            if mod[-1] == "upsample":  # transpose conv
-                arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
-            else:
-                arr = arr.transpose(2, 3, 1, 0)
-            leaf = "kernel"
-        elif leaf == "weight" and arr.ndim == 2:  # Linear
-            arr, leaf = arr.T, "kernel"
-        elif leaf == "weight":  # the only 1-d weights are BatchNorm and LayerNorm scales
-            leaf = "scale"
-        out["/".join([coll, *mod, leaf])] = np.ascontiguousarray(arr)
+        path, arr = _to_flax(name, t.detach().cpu().to(torch.float32).numpy())
+        if path is not None:
+            out[path] = np.ascontiguousarray(arr)
     return out

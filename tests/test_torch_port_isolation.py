@@ -17,7 +17,8 @@ from event_representation_study_tpu_torch.ops import fused_scatter, roll
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
 # the representation library, the GWD ranking, the channel search, the
-# event windows and the N-ImageNet classification, imported in the probe too
+# event windows, the N-ImageNet classification, the detector zoo and the
+# training variants and deploy tools, imported in the probe too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
@@ -26,7 +27,9 @@ NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_s
                "search.optimize", "search.mixed", "cli.bo", "events.windows", "data.nimagenet",
                "data.nimagenet_loaders", "models.resnet", "train.classifier", "cli.classify",
                "models.swin_vit", "models.backbones", "models.necks", "models.layers",
-               "utils.reparam")
+               "utils.reparam", "models.learned_repr", "models.backend",
+               "train.losses_variants", "train.rep_optimizer", "utils.quantize",
+               "utils.export")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -217,27 +220,64 @@ def _train_step(**kw):
     return make_train_step(LossConfig(2), **{"representation": "ERGO12", "device": "cpu", **kw})
 
 
+def _images_trainer(tmp):
+    from event_representation_study_tpu_torch.train.engine import Trainer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    cfg = load_config(REPO / "configs/gen1_optimized.py")
+    cfg["data"]["type"] = "images"
+    return Trainer(cfg, tmp, device="cpu")
+
+
+def _bf16_step(tmp):
+    from event_representation_study_tpu_torch.parallel.train_step import TrainState
+
+    return _train_step()(TrainState(_build(dtype=torch.bfloat16), None, None), None, 0)
+
+
 @pytest.mark.parametrize(
     "call,item",
     [
         (lambda tmp: _trainer(tmp, plot_images=True), "M19"),
-        (lambda tmp: _trainer(tmp, quant_calib=True), "M14"),
-        (lambda tmp: _trainer(tmp, fuse_ab=True), "M14"),
-        (lambda tmp: _build(fuse_ab=True), "M14"),
-        (lambda tmp: _train_step(mode="fuseab"), "M14"),
-        (lambda tmp: _train_step(mode="distill"), "M14"),
+        (_bf16_step, "M20"),
+        (lambda tmp: h5_io.load_events_from_path(tmp / "events.dat"), "M19"),
+        (_images_trainer, "M19"),
         (lambda tmp: _trainer(tmp, steps_per_dispatch=2), "M7"),
-        (lambda tmp: _train_step(representation="LearnedRepresentation"), "M14"),
     ],
-    # the ids "hdf5" and "train_event_aug" (both ported) keep their names for
-    # a Trainer with fuse_ab (M14) and one with multi-step dispatch (M7);
-    # "backbone" (every backbone is ported) for build_model's fuse-ab head
-    ids=["train_plots", "train_ptq", "hdf5", "backbone", "train_fuseab", "train_distill",
-         "train_event_aug", "train_learned_rep"],
+    # ids of paths since ported keep their names: "train_ptq" for a bf16
+    # train step (M20), "hdf5" for a Prophesee .dat file (M19), "backbone"
+    # for an image-folder dataset (M19), "train_event_aug" for multi-step
+    # dispatch (M7)
+    ids=["train_plots", "train_ptq", "hdf5", "backbone", "train_event_aug"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         call(tmp_path)
+
+
+@pytest.mark.parametrize(
+    "call",
+    [
+        lambda: _train_step(mode="fuseab"),
+        lambda: _train_step(mode="distill", teacher=_build()),
+        lambda: _train_step(representation="LearnedRepresentation"),
+        lambda: _build(fuse_ab=True).head.cls_pred_ab_0,
+        lambda: _build(distill_ns=True).head.reg_pred_dist_0,
+        lambda: _build(representation="LearnedRepresentation").quantization,
+    ],
+    ids=["train_fuseab", "train_distill", "train_learned_rep", "backbone_fuse_ab",
+         "head_distill_ns", "model_learned_rep"],
+)
+def test_variant_paths_build(call):
+    """The paths that named M14 before it was ported now build."""
+    assert call() is not None
+
+
+def test_calib_needs_quant(tmp_path):
+    from event_representation_study_tpu_torch.cli import train as train_cli
+
+    with pytest.raises(SystemExit):
+        train_cli.main(["--data-path", str(tmp_path), "--calib", "--device", "cpu"])
 
 
 def _trainer(tmp, **kw):

@@ -189,9 +189,10 @@ SEARCH_DRAWS = 24
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """One intra-op thread while a search test module runs: its thousands of
-    tiny torch ops spin the thread pool on more cores than they gain from,
-    which slows every file of a parallel test run."""
+    """One intra-op thread while a test module that imports this fixture
+    runs (the search's, most of the training variants' and deploy tools'):
+    their many small torch ops spin the thread pool on more cores than they
+    gain from, which slows every file of a parallel test run."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -526,3 +527,168 @@ def check_zoo_step(name, part, got, want, before):
 
 
 ZOO_STEP_PARTS = ("loss_terms", "gradients", "updated_parameters", "batch_statistics")
+
+
+# -- a whole train step of each training variant (tests/test_torch_port_step_*.py)
+
+VARIANT_STEP = dict(H=64, IMG=128, B=4, CAP=2048, M=8, START_UPDATE=1500, MAX_EPOCH=10,
+                    SOLVER=dict(epochs=300, steps_per_epoch=1000))
+# mode -> (train-step mode, epoch, extra overrides): fuse-ab at a TAL epoch,
+# the plain distillation at an ATSS epoch (the ns student assigns by TAL at
+# any epoch), the learned representation at a TAL epoch
+VARIANTS = {
+    "fuseab": ("fuseab", 5, []),
+    "distill": ("distill", 2, []),
+    "distill_ns": ("distill", 2, ["model.type=YOLOv6s"]),
+    "learned": ("plain", 5, ["data.representation=LearnedRepresentation",
+                             "data.height=64", "data.width=64"]),
+}
+
+
+def variant_step_pair(variant: str):
+    """One whole train step of a training variant of the shrunk paper
+    detector (depth 0.2, width 0.125) at 128 px on 4 inputs, in both
+    packages from the same random weights and batch: ``variant`` is
+    "fuseab", "distill" (with ``distill_feat``), "distill_ns" (a YOLOv6s
+    student) or "learned" (raw events of a 64 x 64 sensor into the
+    quantization layer); the others feed random 0..1 images. The teacher
+    of a distillation is the student's weights plus noise (the reference
+    distils from a trained teacher; two unrelated random networks put the
+    feature KD's spatial softmax in a cliff regime). Returns (port, jax,
+    before) as :func:`zoo_step_pair` does, plus the port teacher's
+    BatchNorm statistics before and after the step under "teacher_bn"."""
+    import jax
+    import jax.numpy as jnp
+
+    from event_representation_study_tpu.events import from_structured as jax_from_structured
+    from event_representation_study_tpu.events import stack_blocks as jax_stack_blocks
+    from event_representation_study_tpu.models import build_model as jax_build_model
+    from event_representation_study_tpu.parallel import train_step as jax_train_step
+    from event_representation_study_tpu.train import ema as jax_ema
+    from event_representation_study_tpu.train import losses as jax_losses
+    from event_representation_study_tpu.train import optim as jax_optim
+    from event_representation_study_tpu_torch.events import (
+        from_structured, generate_fake_events, stack_blocks)
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        Batch, TrainState, make_train_step)
+    from event_representation_study_tpu_torch.train import optim
+    from event_representation_study_tpu_torch.train.ema import ema_init
+    from event_representation_study_tpu_torch.train.losses import LossConfig
+    from event_representation_study_tpu_torch.utils.config import load_config
+    from event_representation_study_tpu_torch.utils.convert import flax_to_torch, to_flax_leaves
+
+    c = VARIANT_STEP
+    mode, epoch, extra = VARIANTS[variant]
+    H = W = c["H"]
+    IMG, B, M = c["IMG"], c["B"], c["M"]
+    cfg = load_config(CFG_PATH, overrides=SMALL + extra)
+    hd = cfg["model"]["head"]
+    loss_cfg = dict(num_classes=2, strides=tuple(hd["strides"]), reg_max=hd["reg_max"],
+                    iou_type=hd["iou_type"])
+    learned = variant == "learned"
+    rep = "LearnedRepresentation" if learned else None
+    kw = dict(fuse_ab=variant == "fuseab", distill_ns=variant == "distill_ns")
+    jax_model = jax_build_model(cfg, num_classes=2, representation=rep, img_size=IMG, **kw)
+    rng = np.random.default_rng(11)
+    if learned:
+        evs = [generate_fake_events(1500, H, W, 50_000, seed=30 + i) for i in range(B)]
+        x_j = jax_stack_blocks([jax_from_structured(e, c["CAP"]) for e in evs])
+        x_p = stack_blocks([from_structured(e, c["CAP"]) for e in evs])
+    else:
+        x_j = rng.uniform(0, 1, (B, IMG, IMG, 12)).astype(np.float32)
+        x_p = x_j
+    variables = random_variables(jax_model, x_j, seed=3, train=True)
+    # the class preds at their init, as in zoo_step_pair
+    for name, leaf in variables["params"]["head"].items():
+        if name.startswith("cls_pred_"):
+            leaf["kernel"] = np.zeros_like(leaf["kernel"])
+            leaf["bias"] = np.full_like(leaf["bias"], -np.log(99.0))
+    xy = rng.uniform(8, 70, (B, M, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(20, 55, (B, M, 2))], -1).astype(np.float32)
+    labels = rng.integers(0, 2, (B, M)).astype(np.int32)
+    mask = (np.arange(M)[None] < rng.integers(2, M + 1, (B, 1))).astype(np.float32)
+
+    teacher_j = teacher_p = None
+    if mode == "distill":
+        t_model = jax_build_model(cfg, num_classes=2)
+        t_rng = np.random.default_rng(5)
+        # a plain student has the teacher's tree: no second init trace
+        t_base = (variables if variant == "distill"
+                  else random_variables(t_model, x_j, seed=3, train=True))
+        t_vars = jax.tree_util.tree_map_with_path(
+            lambda path, v: v + 0.1 * float(np.std(v)) * t_rng.normal(size=v.shape).astype(
+                np.float32) if path[-1].key not in ("var",) else v, t_base)
+        teacher_j = (t_model, t_vars)
+        teacher_p = build_model(cfg, 2, device="cpu")
+        teacher_p.load_state_dict(flax_to_torch(t_vars), strict=True)
+
+    tx_j = _with_grad_spy(jax_optim.build_optimizer(variables["params"],
+                                                    jax_optim.SolverConfig(**c["SOLVER"])))
+    opt0 = tx_j.init(variables["params"])
+    state_j = jax_train_step.TrainState(
+        variables["params"], variables["batch_stats"],
+        (opt0[0]._replace(count=jnp.int32(c["START_UPDATE"])), opt0[1]),
+        jax_ema.EMAState(variables, jnp.int32(0)), jnp.int32(0))
+    # no EMA on either side: the step tests compare gradients, parameters
+    # and statistics (test_torch_port_train_step.py holds the EMA)
+    step_j = jax_train_step.make_train_step(
+        jax_model, jax_losses.LossConfig(**loss_cfg), tx_j, representation=rep, rep_hw=(H, W),
+        img_size=IMG, donate=False, mode=mode, teacher=teacher_j, max_epoch=c["MAX_EPOCH"],
+        distill_feat=True, update_ema=False)
+    batch_j = jax_train_step.Batch(None if learned else x_j, x_j if learned else None,
+                                   labels, boxes, mask)
+    new_j, parts_j = step_j(state_j, batch_j, epoch)
+    want = {"grads": jax_leaves(new_j.opt_state[1], "params"),
+            "params": jax_leaves(new_j.params, "params"),
+            "batch_stats": jax_leaves(new_j.batch_stats, "batch_stats"),
+            "parts": {k: float(v) for k, v in parts_j.items()}}
+
+    model = build_model(cfg, 2, device="cpu", representation=rep, img_size=IMG, **kw)
+    model.load_state_dict(flax_to_torch(variables), strict=True)
+    opt = optim.build_optimizer(model, optim.SolverConfig(**c["SOLVER"]))
+    opt.count = c["START_UPDATE"]
+    state = TrainState(model, opt, ema_init(model), 0)
+    step = make_train_step(LossConfig(**loss_cfg), rep, (H, W), IMG, mode=mode, device="cpu",
+                           teacher=teacher_p, max_epoch=c["MAX_EPOCH"], distill_feat=True,
+                           update_ema=False)
+    batch = Batch(None if learned else x_p, x_p if learned else None, labels, boxes, mask)
+    t_bn0 = None if teacher_p is None else {k: v.clone() for k, v in teacher_p.state_dict().items()}
+    state, parts = step(state, batch, epoch)
+    got = {"grads": to_flax_leaves({n: p.grad for n, p in model.named_parameters()}),
+           "params": to_flax_leaves(dict(model.named_parameters())),
+           "batch_stats": port_bn_stats(model),
+           "parts": {k: float(v) for k, v in parts.items()}}
+    if teacher_p is not None:
+        got["teacher_state"] = (t_bn0, teacher_p.state_dict())
+    before = {**jax_leaves(variables["params"], "params"),
+              **jax_leaves(variables["batch_stats"], "batch_stats")}
+    return got, want, before
+
+
+# A distillation step's class KD: the student's class preds start at their
+# init, so its scores are uniform and each row's KL is the difference of two
+# terms of size ~d that leaves ~2 d^2 (d the teacher's softmax offset from
+# 1/2 at T = 20); float32 rounding of the logs moves it by up to ~1e-3
+# relative (3.5e-4 measured between the packages, 4e-6 in float64 on their
+# teacher scores). It, and the class loss that holds it, are held to 1e-3;
+# the total loss to 1e-4 like every other term.
+KD_CLS_STEP_RTOL = 1e-3
+
+
+def check_variant_step(name, part, got, want, before):
+    """:func:`check_zoo_step`, with each variant's own loss terms (the ab
+    branch's, the KD terms) beside the base terms: 1e-4 relative, the class
+    KD and the class loss of a distillation step 1e-3
+    (``KD_CLS_STEP_RTOL``)."""
+    if part != "loss_terms":
+        return check_zoo_step(name, part, got, want, before)
+    distill = "kd_cls" in want["parts"]
+    for k in want["parts"]:
+        if k.endswith("num_pos"):
+            assert got["parts"][k] == want["parts"][k] > 0, k
+        else:
+            rtol = KD_CLS_STEP_RTOL if distill and k in ("cls", "kd_cls") else 1e-4
+            assert_close(f"{name} {k}", got["parts"][k], want["parts"][k], atol=1e-7,
+                         rtol=rtol)
+    assert set(got["parts"]) == set(want["parts"])
