@@ -147,6 +147,23 @@ Phases, one printed line each:
    CPU from the same weights, held as ``train_reference`` is; the learned
    step's value layer (``quantization.*``) in a float64 step, since its
    float32 bias gradients are chaotic, every other leaf in the float32 one.
+25. gen4: the 1 Mpx (Gen4) path on the 1280x720 sensor. Release-format
+   files (2 recordings a split of 1,500,000 events, ``*_td.dat`` written by
+   ``write_dat`` and ``*_bbox.npy`` GT with boxes of all 3 classes, one of
+   class 3, one across the frame edge and one under the 60 px diagonal)
+   consolidated by ``cli/consolidate.py`` (through h5lite where h5py is
+   absent; Blosc whenever a codec is present), every array read back and
+   checked; ``cli/convert.py --filter hot_pixel`` read back through
+   ``H5EventHandle``; the loader's host time a batch of 8 Blosc windows of
+   70,000 events; the full-width paper detector with 3 classes takes a
+   warm-up and 3 ATSS + 3 TAL steps on 8 windows of the split at 640²
+   (ERGO-12 on K1 at 1280x720, image-mode strong augmentation with K3;
+   K1 once and K3 twice a step), its stages timed; 3 requests through
+   ``make_server`` and ``cli/infer.py`` on a ``.dat`` file (K1 once each);
+   ``cli/train.py`` for an epoch then ``cli/eval.py`` (K1 once a step and
+   an eval batch, AP finite); ``cli/precompute_reps.py --limit 8`` (K1
+   once), two samples against the CPU; ``kernel_K1_gen4``: K1 at B 8, N
+   70,000, S 921,600 against its plain version, timed beside its bound.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -516,13 +533,16 @@ def loss_config(cfg):
 
 
 def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = IMG,
-                model_kw=None, step_kw=None, plan: bool = True):
-    """The full-width detector of ``configs/<config>.py`` (``build_model``
-    also given ``model_kw``), its train state and step (separable warp;
-    ``make_train_step`` also given ``step_kw``) at ``img``, and ``n_batches``
-    batches of B windows with the config's strong augmentation planned for
-    each (with ``plan`` false: the config's flips only, as the learned
-    representation trains). Returns (state, step, batches, info)."""
+                model_kw=None, step_kw=None, plan: bool = True, overrides=(),
+                rep_hw=(H, W), batches=None):
+    """The full-width detector of ``configs/<config>.py`` (with
+    ``overrides``; ``build_model`` also given ``model_kw``), its train state
+    and step (separable warp over a ``rep_hw`` sensor; ``make_train_step``
+    also given ``step_kw``) at ``img``, and ``n_batches`` batches of B
+    Gen1 windows with the config's strong augmentation planned for each
+    (with ``plan`` false: the config's flips only, as the learned
+    representation trains), unless ``batches`` are given. Returns (state,
+    step, batches, info)."""
     from event_representation_study_tpu_torch.models import build_model
     from event_representation_study_tpu_torch.ops.warp import separable_hyp_eligible
     from event_representation_study_tpu_torch.parallel.train_step import (
@@ -531,13 +551,13 @@ def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = 
         accumulation_steps, build_optimizer, with_accumulation)
     from event_representation_study_tpu_torch.utils.config import load_config
 
-    cfg = load_config(f"configs/{config}.py")
+    cfg = load_config(f"configs/{config}.py", overrides=list(overrides))
     hyp = dict(cfg["data_aug"])
     require(separable_hyp_eligible(hyp, img), f"{config}: the recipe must fit the separable warp")
     model_kw = model_kw or {}
     t0 = time.perf_counter()
-    model = build_model(cfg, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(5),
-                        **model_kw)
+    model = build_model(cfg, cfg["data"]["num_classes"], device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5), **model_kw)
     # random box-pred convs: with Flax's zero init nothing upstream of them
     # gets a gradient at first. The class preds keep their init (logits
     # -4.6): random ones saturate sigmoid scores to 1.0 in float32, where the
@@ -551,13 +571,14 @@ def train_setup(dev, n_batches: int, config: str = "gen1_optimized", img: int = 
     state = init_train_state(model, with_accumulation(sgd, k_acc))
     step = make_train_step(loss_config(cfg), model_kw.get("representation",
                                                           "OptimizedRepresentation"),
-                           (H, W), img, warp_impl="separable", device=dev, **(step_kw or {}))
+                           rep_hw, img, warp_impl="separable", device=dev, **(step_kw or {}))
     info = {"build_s": time.perf_counter() - t0, "accumulate": k_acc,
             "params": sum(p.numel() for p in model.parameters())}
-    rng = np.random.default_rng(0)
-    batches = [(make_batch if plan else flip_batch)(
-        fake_batch(1000 + 10 * i), fake_labels(rng, img=img), hyp, rng, img)
-        for i in range(n_batches)]
+    if batches is None:
+        rng = np.random.default_rng(0)
+        batches = [(make_batch if plan else flip_batch)(
+            fake_batch(1000 + 10 * i), fake_labels(rng, img=img), hyp, rng, img)
+            for i in range(n_batches)]
     return state, step, batches, info
 
 
@@ -616,9 +637,6 @@ def train_phase(dev):
     the K3 arguments captured in the warm-up step)."""
     from event_representation_study_tpu_torch.ops import fused_scatter as fs
     from event_representation_study_tpu_torch.ops import roll
-    from event_representation_study_tpu_torch.ops.image import letterbox_image
-    from event_representation_study_tpu_torch.parallel.train_step import batch_on_device
-    from event_representation_study_tpu_torch.reps.event_mosaic import mosaic_event_rep
 
     n_steps = sum(TRAIN_STEPS.values())
     state, step, batches, info = train_setup(dev, n_steps + 1)
@@ -650,14 +668,29 @@ def train_phase(dev):
         [n for n, p in model.named_parameters() if torch.equal(p0[n], p)]))
     require(ema_changed >= 0.95 * len(e0), f"{len(e0) - ema_changed} EMA tensors did not change")
 
-    # where a step's device time goes: its stages replayed one by one;
-    # event_mosaic is the other executor of the same plan (aug_mode="event"),
-    # which replaces ergo12 + letterbox + warp
-    stages = {k: [] for k in ("ergo12", "letterbox", "warp", "forward_loss", "backward",
-                              "optimizer_ema", "event_mosaic")}
+    stages = step_stages(state, step, batches, dev)
+    say("train_stages_ms", epoch=5, tf32=tf32_state(),
+        **{k: statistics.median(v) for k, v in stages.items()},
+        all_runs=stages)
+    del state, model, step, batches
+    torch.cuda.empty_cache()
+    return launches, k3_args
+
+
+def step_stages(state, step, batches, dev, mosaic: bool = True):
+    """Where a step's device time goes: its stages replayed one by one on
+    the first 3 batches, each stage's ms from CUDA events. With ``mosaic``,
+    also event_mosaic (Gen1 windows): the other executor of the same plan
+    (aug_mode="event"), which replaces ergo12 + letterbox + warp."""
+    from event_representation_study_tpu_torch.ops.image import letterbox_image
+    from event_representation_study_tpu_torch.parallel.train_step import batch_on_device
+    from event_representation_study_tpu_torch.reps.event_mosaic import mosaic_event_rep
+
+    names = ("ergo12", "letterbox", "warp", "forward_loss", "backward", "optimizer_ema")
+    stages = {k: [] for k in names + (("event_mosaic",) if mosaic else ())}
     for j in range(3):
         batch = batch_on_device(batches[j], dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         ev[0].record()
         rep = step.rep_fn(batch.events)
         ev[1].record()
@@ -665,24 +698,40 @@ def train_phase(dev):
         ev[2].record()
         imgs = (step.warp(img, batch.aug, IMG) / 255.0).permute(0, 3, 1, 2)
         ev[3].record()
-        model.zero_grad(set_to_none=True)
-        loss, _ = step.loss_fn(model, imgs, batch, 5)
+        state.model.zero_grad(set_to_none=True)
+        loss, _ = step.loss_fn(state.model, imgs, batch, 5)
         ev[4].record()
         loss.backward()
         ev[5].record()
         step.apply_update(state)
         ev[6].record()
-        mosaic_event_rep(batch.events, batch.aug, "OptimizedRepresentation", (H, W), IMG)
-        ev[7].record()
+        if mosaic:
+            mosaic_event_rep(batch.events, batch.aug, "OptimizedRepresentation", (H, W), IMG)
+            ev[7].record()
         torch.cuda.synchronize()
         for k, (a, b) in zip(stages, zip(ev, ev[1:])):
             stages[k].append(a.elapsed_time(b))
-    say("train_stages_ms", epoch=5, tf32=tf32_state(),
-        **{k: statistics.median(v) for k, v in stages.items()},
-        all_runs=stages)
-    del state, model, step, batches
-    torch.cuda.empty_cache()
-    return launches, k3_args
+    return stages
+
+
+def serve_stages(serve, blocks, dev, img: int = IMG):
+    """Where a request's device time goes, stage by stage (ms from CUDA
+    events), and the detector's predictions."""
+    from event_representation_study_tpu_torch.ops.image import letterbox_image
+    from event_representation_study_tpu_torch.ops.nms import non_max_suppression
+
+    with torch.inference_mode():
+        blk = blocks.to(dev)
+        rep = serve.rep_fn(blk)
+        x = (letterbox_image(rep, img) / 255.0).permute(0, 3, 1, 2)
+        preds = serve.model(x)
+        return {
+            "h2d": cuda_ms(lambda: blocks.to(dev), 5),
+            "ergo12": cuda_ms(lambda: serve.rep_fn(blk), 5),
+            "letterbox": cuda_ms(lambda: letterbox_image(rep, img) / 255.0, 5),
+            "detector": cuda_ms(lambda: serve.model(x), 5),
+            "nms": cuda_ms(lambda: non_max_suppression(preds, conf_thres=serve.conf_thres), 5),
+        }, preds
 
 
 def roll_key(k3_args):
@@ -948,9 +997,10 @@ def _trainer_fixture(root, val_boxes: int = TRAINER_BOXES, train: bool = True):
     """Synthetic Gen1 splits from the port's writer: training 2 recordings x
     16 boxes (unless ``train`` is false), validation 1 x ``val_boxes``,
     200,000 events a recording for each 16 boxes; Blosc-ZSTD chunks when
-    this process can encode them (a Blosc codec, and h5py: the HDF5 subset
-    used without h5py, ``events/h5lite.py``, reads chunks but writes none).
-    Returns (what wrote it, seconds)."""
+    this process can encode them and has h5py. Without h5py the splits stay
+    unfiltered, as in the runs before ``events/h5lite.py`` wrote chunks, so
+    that this phase's loader times compare across runs (the gen4 phase
+    writes Blosc through h5lite). Returns (what wrote it, seconds)."""
     from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
     from event_representation_study_tpu_torch.events import blosc_codec, h5lite
 
@@ -2637,6 +2687,317 @@ def variants_reference(dev):
         require(all(g[k] == c[k] > 0 for k in pos), f"{name}: positive anchors {g} vs {c}")
         require(step_within(r["errors"]), f"{name} step card vs CPU: {r['errors']}")
 
+GEN4_H, GEN4_W, GEN4_N = 720, 1280, 70_000  # the 1 Mpx sensor, its windows' events
+GEN4_EVENTS = 1_500_000  # a recording
+GEN4_STAMPS = 12  # label timestamps a recording: 24 windows a split, 3 batches of B
+GEN4_OVERRIDES = ["data.num_classes=3"]
+GT_DTYPE = [("t", "<u8"), ("x", "<f4"), ("y", "<f4"), ("w", "<f4"), ("h", "<f4"),
+            ("class_id", "<u4")]  # the release's *_bbox.npy, the fields consolidation reads
+
+
+def gen4_release(root, seed: int):
+    """A 1 Mpx split in the release format: 2 recordings of GEN4_EVENTS
+    events over 2.4 s (``*_td.dat``, EVT2.0) and their ``*_bbox.npy`` GT.
+    Each of GEN4_STAMPS label timestamps has boxes of classes 0, 1 and 2
+    inside the frame, one of class 3 (dropped: class_id <= 2), one crossing
+    the left edge (cropped) and one of 30 x 30 px (under the 60 px
+    diagonal: dropped). Half of the events fall in the 60 ms before a
+    timestamp inside its kept boxes, the rest anywhere on the sensor.
+    Returns [(events, GT rows)] per recording."""
+    from event_representation_study_tpu_torch.events.prophesee import EVENT_DTYPE, write_dat
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    out = []
+    for r in range(2):
+        stamps = np.sort(rng.choice(np.arange(100, 2400) * 1000, GEN4_STAMPS, replace=False))
+        gt = np.zeros(GEN4_STAMPS * 6, GT_DTYPE)
+        gt["t"] = np.repeat(stamps, 6)
+        gt["class_id"] = np.tile([0, 1, 2, 3, 1, 2], GEN4_STAMPS)
+        w, h = rng.uniform(80, 400, len(gt)), rng.uniform(60, 300, len(gt))
+        w[4::6], h[4::6], w[5::6], h[5::6] = 200.0, 120.0, 30.0, 30.0
+        gt["w"], gt["h"] = w, h
+        gt["x"], gt["y"] = rng.uniform(0, GEN4_W - w), rng.uniform(0, GEN4_H - h)
+        gt["x"][4::6] = -60.0
+        t = np.sort(rng.integers(0, 2_400_000, GEN4_EVENTS))
+        x, y = rng.integers(0, GEN4_W, GEN4_EVENTS), rng.integers(0, GEN4_H, GEN4_EVENTS)
+        nxt = np.minimum(np.searchsorted(stamps, t), GEN4_STAMPS - 1)
+        inside = (rng.random(GEN4_EVENTS) < 0.5) & (t > stamps[nxt] - 60_000) & (t <= stamps[nxt])
+        box = 6 * nxt + rng.integers(0, 3, GEN4_EVENTS)  # one of the three kept in-frame boxes
+        x = np.where(inside, gt["x"][box] + rng.random(GEN4_EVENTS) * gt["w"][box], x)
+        y = np.where(inside, gt["y"][box] + rng.random(GEN4_EVENTS) * gt["h"][box], y)
+        x, y = np.minimum(x, GEN4_W - 1), np.minimum(y, GEN4_H - 1)  # float32 box edges
+        ev = np.zeros(GEN4_EVENTS, EVENT_DTYPE)
+        ev["x"], ev["y"], ev["t"] = x.astype(np.int64), y.astype(np.int64), t
+        ev["p"] = rng.choice([-1, 1], GEN4_EVENTS)
+        write_dat(root / f"rec{r}_td.dat", ev, GEN4_H, GEN4_W)
+        np.save(root / f"rec{r}_bbox.npy", gt)
+        out.append((ev, gt))
+    return out
+
+
+def gen4_expected(ev, gt) -> dict:
+    """The arrays a consolidated recording must hold: the events in the
+    layout's dtypes, and the GT through the frame crop, the paper's box
+    filter and class_id <= 2, grouped by timestamp."""
+    from event_representation_study_tpu_torch.data import gen4
+
+    b = gen4.filter_boxes(gen4.crop_to_frame(np.stack(
+        [gt[k].astype(np.float64) for k, _ in GT_DTYPE], 1), GEN4_H, GEN4_W))
+    b = b[b[:, 5] <= 2]
+    t_unique, inv = np.unique(b[:, 0], return_inverse=True)
+    b = b[np.argsort(inv, kind="stable")]
+    return {"events/x": ev["x"].astype(np.uint16), "events/y": ev["y"].astype(np.uint16),
+            "events/t": ev["t"], "events/p": ev["p"].astype(np.int8),
+            "events/height": np.int64(GEN4_H), "events/width": np.int64(GEN4_W),
+            "bbox/t_unique": t_unique.astype(np.int64),
+            "bbox/offsets": np.cumsum(np.bincount(inv)).astype(np.int64),
+            "bbox/class_id": b[:, 5].astype(np.int64),
+            **{f"bbox/{k}": b[:, i].astype(np.float32) for i, k in enumerate("xywh", 1)},
+            "bbox/event_idx": np.searchsorted(ev["t"], t_unique, side="right").astype(np.int64)}
+
+
+def gen4_phase(dev, cnt_cols):
+    """The 1 Mpx (Gen4) path at the sensor's full size: release-format
+    files consolidated (``cli/consolidate.py``) through h5lite and checked
+    array by array; ``cli/convert.py`` with the hot-pixel filter; the
+    full-width paper detector with 3 classes trained (warm-up, 3 ATSS, 3
+    TAL steps on batches of 8 x 70,000-event windows from the split,
+    ERGO-12 on K1 at 1280x720, the image-mode strong augmentation on K3)
+    and served (3 requests, and ``cli/infer.py`` on a ``.dat`` file), the
+    loader's host time a batch, ``cli/train.py`` for an epoch then
+    ``cli/eval.py``, ``cli/precompute_reps.py`` on 8 windows against the
+    CPU, and K1 at the 1 Mpx shape against its plain version
+    (``kernel_K1_gen4``). Returns (K1 launches of the path, K3 launches,
+    the K1 entry)."""
+    import contextlib
+    import io
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import consolidate as consolidate_cli
+    from event_representation_study_tpu_torch.cli import convert as convert_cli
+    from event_representation_study_tpu_torch.cli import eval as eval_cli
+    from event_representation_study_tpu_torch.cli import infer as infer_cli
+    from event_representation_study_tpu_torch.cli import precompute_reps as bake_cli
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.cli.infer import make_server
+    from event_representation_study_tpu_torch.data.gen4 import Gen4Dataset
+    from event_representation_study_tpu_torch.data.loader import EventBatchLoader
+    from event_representation_study_tpu_torch.events import blosc_codec, filters, h5lite
+    from event_representation_study_tpu_torch.events.h5_io import H5EventHandle
+    from event_representation_study_tpu_torch.events.prophesee import read_dat
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.reps.dispatch import batched_representation
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    codec = blosc_codec.available()
+    k1_path = k3_path = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        data = root / "data"
+        data.mkdir()
+        t0 = time.perf_counter()
+        release = {split: gen4_release(root / split, seed) for split, seed in
+                   (("training", 1), ("validation", 2))}
+        release_s = time.perf_counter() - t0
+
+        # consolidation through h5lite where h5py is absent, checked array by array
+        consolidation, equal = {}, {}
+        for split, recs in release.items():
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                consolidate_cli.main([str(root / split), "--output", str(data / f"{split}.h5")])
+            seconds = time.perf_counter() - t0
+            f = h5lite.File(data / f"{split}.h5")
+            blosc = all(f[f"{rec}/{g}/{k}"].filter_ids == (h5lite.BLOSC_FILTER_ID,)
+                        for rec in f.keys() for g in ("events", "bbox")
+                        for k in f[f"{rec}/{g}"].keys()
+                        if f[f"{rec}/{g}/{k}"].shape not in ((), (0,)))
+            for r, (ev, gt) in enumerate(recs):
+                for name, want in gen4_expected(ev, gt).items():
+                    got = f[f"rec{r:05d}/{name}"]
+                    equal[f"{split}/rec{r}/{name}"] = (got.dtype == want.dtype
+                                                       and np.array_equal(got[()], want))
+            f.close()
+            consolidation[split] = {"seconds": seconds, "events": 2 * GEN4_EVENTS,
+                                    "events_per_s": 2 * GEN4_EVENTS / seconds,
+                                    "bytes": (data / f"{split}.h5").stat().st_size,
+                                    "dat_bytes": sum((root / split / f"rec{r}_td.dat").stat().st_size
+                                                     for r in range(2)), "blosc": blosc}
+        written_by = "h5lite" if blosc_codec.h5py is h5lite else "h5py"
+        say("gen4_consolidation", blosc_codec_available=codec, written_by=written_by,
+            release_files_s=release_s, **consolidation, arrays_checked=len(equal),
+            arrays_equal=sum(equal.values()))
+        require(all(equal.values()), "consolidated arrays differ: "
+                + str([k for k, v in equal.items() if not v]))
+        require(all(c["blosc"] == codec for c in consolidation.values()),
+                f"Blosc datasets {consolidation} with a codec present: {codec}")
+
+        # conversion: .dat -> .h5 through H5Writer, the hot-pixel filter on the way
+        dat = root / "training" / "rec0_td.dat"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_cli.main([str(dat), "--filter", "hot_pixel", "--output",
+                              str(root / "converted.h5")])
+        convert_s = time.perf_counter() - t0
+        h = H5EventHandle(root / "converted.h5")
+        got = h.get_between_idx(0, len(h))
+        sensor = (h.height, h.width)
+        h.close()
+        want = filters.hot_pixel_filter(read_dat(dat), GEN4_H, GEN4_W)
+        converted_equal = len(got) == len(want) and all(np.array_equal(got[k], want[k])
+                                                        for k in "xytp")
+        say("gen4_convert", seconds=convert_s, events=len(got), sensor=sensor,
+            equal_to_filtered_read=converted_equal)
+        require(converted_equal and sensor == (GEN4_H, GEN4_W), "converted .dat read back")
+
+        # the loader's host time a batch: 8 Blosc windows of 70,000 events
+        cfg = load_config("configs/gen1_optimized.py", overrides=GEN4_OVERRIDES)
+        train_ds = Gen4Dataset(data / "training.h5", num_events=GEN4_N)
+        val_ds = Gen4Dataset(data / "validation.h5", task="val", num_events=GEN4_N)
+        strong = EventBatchLoader(train_ds, B, img_size=IMG, hyp=dict(cfg["data_aug"]), seed=0)
+        plain = EventBatchLoader(val_ds, B, img_size=IMG, shuffle=False)
+        loader_ms = {"strong_aug": [], "eval": []}
+        batches, val_batches = [], []
+        for k in range(1 + sum(TRAIN_STEPS.values())):
+            order = strong._indices()
+            idx = order[(k % 3) * B:(k % 3 + 1) * B]
+            t0 = time.perf_counter()
+            batches.append(strong._make_batch(idx)[0])
+            loader_ms["strong_aug"].append((time.perf_counter() - t0) * 1e3)
+            strong.epoch += k % 3 == 2
+        for k in range(3):
+            t0 = time.perf_counter()
+            val_batches.append(plain._make_batch(np.arange(k * B, (k + 1) * B))[0])
+            loader_ms["eval"].append((time.perf_counter() - t0) * 1e3)
+        windows_full = sum(train_ds[i].num_events == GEN4_N for i in range(len(train_ds)))
+        say("gen4_loader_host_ms", batch=B, events_per_window=GEN4_N,
+            train_windows=len(train_ds), windows_full=int(windows_full),
+            median_ms={k: statistics.median(v) for k, v in loader_ms.items()}, ms=loader_ms)
+
+        # the full-width train step at 1280x720, image-mode strong augmentation
+        state, step, batches, info = train_setup(dev, 0, overrides=GEN4_OVERRIDES,
+                                                 rep_hw=(GEN4_H, GEN4_W), batches=batches)
+        t0 = time.perf_counter()
+        (state, parts), k3_args = capture_roll_inputs(lambda: step(state, batches[0], 0))
+        warm = {k: v.item() for k, v in parts.items()}
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        state, times, per_step, launches, peak = timed_steps(state, step, batches[1:])
+        n_steps = sum(TRAIN_STEPS.values())
+        k1_path += launches[fs.K1]
+        k3_path += launches[roll.K3]
+        stages = step_stages(state, step, batches[1:], dev, mosaic=False)
+        say("gen4_train", batch=B, events_per_window=GEN4_N, sensor=[GEN4_H, GEN4_W], img=IMG,
+            num_classes=3, **info, warmup_step_ms=warm_ms, warmup_step=warm,
+            ms_per_step=times, median_ms=statistics.median(times), peak_mem_bytes=peak,
+            steps=per_step, launches=launches,
+            roll_shapes=[list(a[0].shape) for a in k3_args],
+            stages_median_ms={k: statistics.median(v) for k, v in stages.items()},
+            stages_ms=stages, tf32=tf32_state())
+        require(launches[fs.K1] == n_steps and launches[roll.K3] == 2 * n_steps,
+                f"1 Mpx steps: launches {launches} for {n_steps} steps")
+        require(all(math.isfinite(v) for st in per_step for v in st.values()), "finite losses")
+        require(all(st["num_pos"] > 0 for st in per_step), "every step has positive anchors")
+        del state, step, batches, k3_args
+        torch.cuda.empty_cache()
+
+        # serving: 3 requests of 8 validation windows, and cli/infer.py on a .dat file
+        serve = make_server(cfg, "OptimizedRepresentation", GEN4_H, GEN4_W, IMG, 0.03,
+                            device="cuda")
+        randomize_preds_(serve.model, torch.Generator(device=dev).manual_seed(1))
+        requests = [b.events for b in val_batches]
+        serve(requests[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts = [], []
+        fs.reset_launches()
+        for blk in requests:
+            t = time.perf_counter()
+            dets, n = serve(blk)
+            counts.append(n.tolist())  # host copy: waits for the device
+            times.append((time.perf_counter() - t) * 1e3)
+        serve_k1 = fs.LAUNCHES[fs.K1]
+        peak = torch.cuda.max_memory_allocated()
+        stages, _ = serve_stages(serve, requests[0], dev)
+        del serve
+        torch.cuda.empty_cache()
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            infer_dets = infer_cli.main(["--events", str(root / "validation" / "rec1_td.dat"),
+                                         "--num-events", str(GEN4_N), "--conf-thres", "0.001",
+                                         "--override", *GEN4_OVERRIDES])
+        infer_s, infer_k1 = time.perf_counter() - t0, fs.LAUNCHES[fs.K1]
+        k1_path += serve_k1 + infer_k1
+        say("gen4_serve", requests=len(requests), batch=B, events_per_window=GEN4_N,
+            sensor=[GEN4_H, GEN4_W], img=IMG, ms_per_request=times,
+            median_ms=statistics.median(times), peak_mem_bytes=peak,
+            detections_per_image=counts, k1_launches=serve_k1, stages_ms=stages,
+            infer_dat={"seconds": infer_s, "detections": len(infer_dets), "k1_launches": infer_k1},
+            tf32=tf32_state())
+        require(serve_k1 == len(requests) and bool(torch.isfinite(dets).all()),
+                f"1 Mpx requests: K1 {serve_k1}")
+        require(infer_k1 == 1 and np.isfinite(infer_dets).all(), f"cli/infer.py .dat: K1 {infer_k1}")
+
+        # the Trainer for an epoch on the two splits, then cli/eval.py
+        args = ["--conf", "configs/gen1_optimized.py", "--data-path", str(data),
+                "--batch-size", str(B), "--img-size", str(IMG), "--num-events", str(GEN4_N),
+                "--override", *GEN4_OVERRIDES]
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        tr = train_cli.main(args + ["--epochs", "1", "--eval-interval", "1",
+                                    "--output-dir", str(root / "run")])
+        trainer_s, trainer_k1 = time.perf_counter() - t0, fs.LAUNCHES[fs.K1]
+        train_steps, val_steps = len(tr.train_loader), len(tr.val_loader)
+        del tr
+        torch.cuda.empty_cache()
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        stats = eval_cli.main(args + ["--checkpoint", str(root / "run" / "last_ckpt"),
+                                      "--task", "val"])
+        eval_s, eval_k1 = time.perf_counter() - t0, fs.LAUNCHES[fs.K1]
+        k1_path += trainer_k1 + eval_k1
+        say("gen4_trainer", seconds=trainer_s, train_steps=train_steps, val_batches=val_steps,
+            k1_launches=trainer_k1, eval_cli={"seconds": eval_s, "k1_launches": eval_k1,
+                                               "AP": stats["AP"], "AP50": stats["AP50"]})
+        require(trainer_k1 == train_steps + val_steps and eval_k1 == val_steps,
+                f"Trainer K1 {trainer_k1} for {train_steps} + {val_steps}, eval {eval_k1}")
+        require(math.isfinite(stats["AP"]), f"cli/eval.py AP {stats['AP']}")
+
+        # baking 8 validation windows; two of them against the CPU
+        fs.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            baked = bake_cli.main(["--data-path", str(data), "--output-dir", str(root / "baked"),
+                                   "--limit", str(B), "--batch-size", str(B),
+                                   "--num-events", str(GEN4_N)])
+        bake_s, bake_k1 = time.perf_counter() - t0, fs.LAUNCHES[fs.K1]
+        k1_path += bake_k1
+        cpu_rep = batched_representation("OptimizedRepresentation", GEN4_H, GEN4_W)(
+            val_batches[0].events.to("cpu"))
+        bake_err = 0.0
+        for i in range(2):
+            f = h5lite.File(root / "baked" / "reps" / f"{i}.h5")
+            bake_err = max(bake_err, float(np.abs(f["rep"][()] - cpu_rep[i].numpy()).max()))
+            f.close()
+        say("gen4_bake", samples=baked, seconds=bake_s, k1_launches=bake_k1,
+            bytes=sum(q.stat().st_size for q in (root / "baked" / "reps").iterdir()),
+            max_abs_err_vs_cpu=bake_err, tolerance=2e-4 * 255)
+        require(baked == B and bake_k1 == 1 and bake_err <= 2e-4 * 255,
+                f"baking: {baked} samples, K1 {bake_k1}, err {bake_err}")
+
+    # K1 at the 1 Mpx shape: B 8, N 70,000, S 921,600, Ks 18, Km 3
+    blocks = val_batches[0].events.to(dev)
+    _, _, k1_args = capture_kernel_inputs(
+        lambda: batched_representation("OptimizedRepresentation", GEN4_H, GEN4_W)(blocks))
+    flush = torch.empty(256 * 2**20 // 4, device=dev)
+    entry = check_kernel("kernel_K1_gen4", k1_args, cnt_cols, flush)
+    del flush, k1_args, blocks
+    torch.cuda.empty_cache()
+    return k1_path, k3_path, entry
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2650,7 +3011,6 @@ def main() -> int:
     from event_representation_study_tpu_torch.cli.infer import make_server
     from event_representation_study_tpu_torch.ops import cuda_build
     from event_representation_study_tpu_torch.ops import fused_scatter as fs
-    from event_representation_study_tpu_torch.ops.image import letterbox_image
     from event_representation_study_tpu_torch.ops.nms import non_max_suppression
     from event_representation_study_tpu_torch.reps import fused_mdes
     from event_representation_study_tpu_torch.reps.ergo12 import (
@@ -2728,18 +3088,8 @@ def main() -> int:
     require(launches[fs.K1] == REQUESTS, f"K1 launches {launches} for {REQUESTS} requests")
     require(dets.shape == (B, 300, 6) and bool(torch.isfinite(dets).all()), "detections")
     require(all(0 < c <= 300 for cs in counts for c in cs), f"detection counts {counts}")
-    with torch.inference_mode():  # where a request's device time goes
-        blk = requests[0].to(dev)
-        rep = serve.rep_fn(blk)
-        x = (letterbox_image(rep, IMG) / 255.0).permute(0, 3, 1, 2)
-        preds = serve.model(x)
-        say("serve_stages_ms", tf32=tf32_state(), **{
-            "h2d": cuda_ms(lambda: requests[0].to(dev), 5),
-            "ergo12": cuda_ms(lambda: serve.rep_fn(blk), 5),
-            "letterbox": cuda_ms(lambda: letterbox_image(rep, IMG) / 255.0, 5),
-            "detector": cuda_ms(lambda: serve.model(x), 5),
-            "nms": cuda_ms(lambda: non_max_suppression(preds, conf_thres=0.03), 5),
-        })
+    stages, preds = serve_stages(serve, requests[0], dev)
+    say("serve_stages_ms", tf32=tf32_state(), **stages)
     torch.backends.cudnn.allow_tf32 = True
     tf32_times = []
     for blk in requests[:REQUESTS]:
@@ -2825,6 +3175,8 @@ def main() -> int:
     # 23-24. the training variants and deploy tools; their shrunk steps card vs CPU
     variant_k1, variant_k3 = variants_phase(dev)
     variants_reference(dev)
+    # 25. the 1 Mpx (Gen4) path: release files to training, serving and baking
+    gen4_k1, gen4_k3, k1_gen4 = gen4_phase(dev, cnt_cols)
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
@@ -2833,7 +3185,7 @@ def main() -> int:
                               "search": search_launches[fs.K1],
                               "gen1_published_format": published_launches,
                               "classify": classify_launches, "zoo": zoo_k1,
-                              "zoo_half": half_k1, **variant_k1}
+                              "zoo_half": half_k1, **variant_k1, "gen4": gen4_k1}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
                               "search": search_launches[fs.K2]}
@@ -2851,13 +3203,15 @@ def main() -> int:
                                                      "share_of_representation")},
                 "launches": rep_launches[name][entry["name"]]}
         if entry is k1:
-            entry["by_shape"]["nimagenet"] = {
-                **{k: k1_cls[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                          "max_abs_err")}, "launches": classify_launches}
+            for label, e, n in (("nimagenet", k1_cls, classify_launches),
+                                ("gen4_1mpx", k1_gen4, gen4_k1)):
+                entry["by_shape"][label] = {
+                    **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                         "max_abs_err")}, "launches": n}
         entry["max_abs_err"] = max(v["max_abs_err"] for v in entry["by_shape"].values())
     k3["launches_by_path"] = {"train": train_launches["roll_rows"],
                               "zoo": sum(r["launches"] for r in zoo_rolls.values()),
-                              **variant_k3}
+                              **variant_k3, "gen4": gen4_k3}
     k3["launches"] = sum(k3["launches_by_path"].values())
     # the main figures stay those of the paper step (640²); each other shape
     # of the zoo's steps beside them, held in zoo_phase

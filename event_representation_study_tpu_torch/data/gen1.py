@@ -25,7 +25,7 @@ import numpy as np
 
 try:
     import h5py
-except ImportError:  # no h5py: events/h5lite.py (reads Blosc chunks, writes none)
+except ImportError:  # no h5py: events/h5lite.py (reads and writes Blosc chunks)
     from ..events import h5lite as h5py
 
 SPLIT_FILES = {"train": "training.h5", "val": "validation.h5", "test": "testing.h5"}

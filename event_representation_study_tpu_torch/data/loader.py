@@ -46,6 +46,7 @@ class EventBatchLoader:
         fliplr: float = 0.0,
         hyp: Optional[dict] = None,
         partner_pool: int = 0,
+        index_sampler=None,
     ):
         """``flipud``/``fliplr`` enable the reference's geometric flip
         augmentation (gen1_2yolo.py:210-228) applied jointly to the event
@@ -65,7 +66,12 @@ class EventBatchLoader:
         samples appended to each batch as mosaic/mixup partners (the
         reference draws partners from random dataset indices). The event
         block then has B + partner_pool rows; the train step emits the
-        first B."""
+        first B.
+
+        ``index_sampler``, called with the epoch, gives the epoch's index
+        stream in place of the shuffled one (e.g.
+        ``data/gen4.py::random_continuous_indices``, the reference's
+        RandomContinuousSampler); shards still stride it."""
         self.ds = dataset
         self.batch_size = batch_size
         self.img_size = img_size
@@ -79,6 +85,7 @@ class EventBatchLoader:
         self.drop_last = drop_last
         self.shard_id = shard_id
         self.num_shards = num_shards
+        self.index_sampler = index_sampler
         self.epoch = 0
 
     def __len__(self):
@@ -88,10 +95,13 @@ class EventBatchLoader:
         return (n + self.batch_size - 1) // self.batch_size
 
     def _indices(self):
-        idx = np.arange(len(self.ds))
-        if self.shuffle:
-            rng = np.random.default_rng(self.seed + self.epoch)
-            rng.shuffle(idx)
+        if self.index_sampler is not None:
+            idx = np.asarray(self.index_sampler(self.epoch))
+        else:
+            idx = np.arange(len(self.ds))
+            if self.shuffle:
+                rng = np.random.default_rng(self.seed + self.epoch)
+                rng.shuffle(idx)
         return idx[self.shard_id :: self.num_shards]
 
     @staticmethod

@@ -28,7 +28,9 @@ those files readable and writable anyway, through three layers:
    compress ourselves (``create_blosc_dataset`` / ``BloscAppender``) under
    ``allow_unknown_filter=True`` — producing files byte-compatible with
    hdf5plugin readers (the HDF5 pipeline compresses full, fill-padded edge
-   chunks, which is exactly what we emit).
+   chunks, which is exactly what we emit). Without h5py the same writers
+   go through ``h5lite``'s groups, which take ``create_dataset``,
+   ``resize`` and ``id.write_direct_chunk`` as h5py does.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ import numpy as np
 
 try:
     import h5py
-except ImportError:  # no h5py: h5lite reads Blosc chunks itself, and writes none
+except ImportError:  # no h5py: h5lite reads and writes Blosc chunks itself
     from . import h5lite as h5py
 
 BLOSC_H5_FILTER_ID = 32001
@@ -525,9 +527,8 @@ def create_blosc_dataset(
     """Create a filter-32001 dataset writable via ``write_blosc`` /
     ``BloscAppender`` without hdf5plugin (uses ``allow_unknown_filter``).
     Uses the reference's codec configuration by default
-    (precompute_reps.py:31-48: zstd, bit-shuffle, clevel 1)."""
-    if not hasattr(group, "create_dataset"):
-        raise NotImplementedError("Blosc-compressed datasets need h5py (not installed)")
+    (precompute_reps.py:31-48: zstd, bit-shuffle, clevel 1). ``group`` is
+    an h5py group, or without h5py an ``h5lite`` one."""
     dtype = np.dtype(dtype)
     shape = tuple(shape)
     if chunks is None:

@@ -1,11 +1,11 @@
-"""Event-file loading (the JAX package's ``events/h5_io.py``): the read
-handle :class:`H5EventHandle` over the canonical ``events/{x,y,t,p,height,
-width}`` layout with its time and index window queries (``events/
-windows.py``), through h5py, or without it through ``events/h5lite.py``;
-Blosc-ZSTD chunks are decoded by ``blosc_codec`` either way. And the
-``.h5``/``.hdf5``, ``.npz`` and ``.npy`` branches of
-``load_events_from_path``. ``H5Writer`` and the ``.dat``, ``.bin`` and
-``.bag`` branches are not ported (ROADMAP M19)."""
+"""Event-file I/O (the JAX package's ``events/h5_io.py``): the read handle
+:class:`H5EventHandle` over the canonical ``events/{x,y,t,p,height,width}``
+layout with its time and index window queries (``events/windows.py``), the
+incremental writer :class:`H5Writer` (ev-licious h5_writer.py:29-67), and
+the suffix-dispatched ``load_events_from_path`` (.h5/.hdf5, .npz, .npy,
+Prophesee .dat, N-MNIST .bin, ROS1 .bag). Files are read and written
+through h5py, or without it through ``events/h5lite.py``; Blosc-ZSTD chunks
+are encoded and decoded by ``blosc_codec`` either way."""
 from __future__ import annotations
 
 import pathlib
@@ -18,7 +18,15 @@ from .core import normalize_polarity
 from .windows import (find_index_from_timestamps, index_windows, time_and_index_windows,
                       time_windows)
 
+try:
+    import hdf5plugin
+
+    _COMPRESSION = dict(hdf5plugin.Blosc(cname="zstd", clevel=1, shuffle=2))
+except ImportError:
+    _COMPRESSION = None  # Blosc frames through blosc_codec (gzip if it has no codec)
+
 _DTYPE = [("x", "<i4"), ("y", "<i4"), ("t", "<i8"), ("p", "<i4")]
+_FIELDS = (("x", np.uint16), ("y", np.uint16), ("t", np.int64), ("p", np.int8))
 
 
 class H5EventHandle:
@@ -79,6 +87,56 @@ class H5EventHandle:
         self.f.close()
 
 
+class H5Writer:
+    """Incremental appender (h5_writer.py:29-67) writing the reference's
+    Blosc-ZSTD bit-shuffle chunks of 65,536 events (compression 32001, opts
+    (0, 0, 0, 0, 1, 2, 5), h5_writer.py:8-28): through hdf5plugin when it
+    is importable, else as frames of ``blosc_codec.BloscAppender``; deflate
+    (gzip) only when this process has no Blosc codec at all. The file is an
+    h5py one, or without h5py an h5lite one."""
+
+    def __init__(self, path, height: int, width: int):
+        self.f = blosc_codec.h5py.File(path, "w")
+        g = self.f.create_group("events")
+        self._ds = {}
+        self._appenders = {}
+        if _COMPRESSION is not None:
+            for name, dtype in _FIELDS:
+                self._ds[name] = g.create_dataset(name, shape=(0,), maxshape=(None,),
+                                                  dtype=dtype, chunks=(1 << 16,), **_COMPRESSION)
+        elif blosc_codec.available():
+            for name, dtype in _FIELDS:
+                self._appenders[name] = blosc_codec.BloscAppender(g, name, dtype, chunk=1 << 16)
+        else:
+            for name, dtype in _FIELDS:
+                self._ds[name] = g.create_dataset(
+                    name, shape=(0,), maxshape=(None,), dtype=dtype, chunks=(1 << 16,),
+                    compression="gzip", compression_opts=4)
+        g["height"], g["width"], g["divider"] = height, width, 1
+
+    def add(self, x, y, t, p):
+        if self._appenders:
+            for name, arr in (("x", x), ("y", y), ("t", t), ("p", p)):
+                self._appenders[name].append(arr)
+            return
+        n0 = self._ds["x"].shape[0]
+        n1 = n0 + len(x)
+        for name, arr in (("x", x), ("y", y), ("t", t), ("p", p)):
+            self._ds[name].resize((n1,))
+            self._ds[name][n0:n1] = arr
+
+    def close(self):
+        for app in self._appenders.values():
+            app.close()
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+
 def _from_columns(raw: np.ndarray) -> np.ndarray:
     out = np.zeros(len(raw), dtype=_DTYPE)
     out["x"], out["y"], out["t"], out["p"] = (
@@ -88,7 +146,8 @@ def _from_columns(raw: np.ndarray) -> np.ndarray:
 
 
 def load_events_from_path(path) -> np.ndarray:
-    """Suffix-dispatched loader: structured ``(x, y, t, p)`` array."""
+    """Suffix-dispatched loader (io/__init__.py:22-39): structured
+    ``(x, y, t, p)`` array."""
     path = pathlib.Path(path)
     if path.suffix in (".h5", ".hdf5"):
         h = H5EventHandle(path)
@@ -109,7 +168,17 @@ def load_events_from_path(path) -> np.ndarray:
         return _from_columns(raw)
     if path.suffix == ".npy":
         return _from_columns(np.load(path))
-    raise NotImplementedError(
-        f"{path.suffix} event files are not ported yet (ROADMAP M19: .dat/.bin/.bag); "
-        "use .h5, .hdf5, .npz or .npy"
-    )
+    if path.suffix == ".dat":
+        from .prophesee import read_dat
+
+        return read_dat(path)
+    if path.suffix == ".bin":
+        from .prophesee import read_nmnist_bin
+
+        return read_nmnist_bin(path)
+    if path.suffix == ".bag":  # rosbag handle (io/rosbag_event_handle.py)
+        from .rosbag import RosbagEventHandle
+
+        h = RosbagEventHandle(path)
+        return h.get_between_idx(0, len(h))
+    raise ValueError(f"unsupported event file: {path}")

@@ -3,24 +3,36 @@
 It writes files in the HDF5 format itself (``h5py`` and the HDF5 tools open
 what it writes): superblock version 2, version-2 object headers, groups
 with their links stored in the header (compact storage), and datasets of
-little-endian integers or floats, scalar or N-d, stored contiguously.
+little-endian integers or floats, scalar or N-d, stored contiguously or in
+chunks. A chunked dataset is indexed by a version-1 B-tree (nodes of
+2K = 64 entries, the default K of a version-2 superblock; internal nodes
+once a dataset has more chunks than one leaf), may be extendable
+(``maxshape`` with ``None``), and may pass through a filter: deflate
+(filter 1, ``compression="gzip"``) or Blosc (filter 32001, frames from
+``blosc_codec``). Chunks are written as they come, by
+``ds[...] = array`` (each chunk through the pipeline) or by
+``ds.id.write_direct_chunk(offsets, frame, filter_mask)`` (a frame already
+filtered, as ``blosc_codec`` writes them); the metadata follows on
+``close()``.
 
 It reads what it writes, and the format that ``h5py`` writes by default
 (``libver="earliest"``), in which the published Gen1 files come:
 superblock version 0 or 1, version-1 object headers with continuation
 blocks, symbol-table groups (a version-1 B-tree of SNOD nodes over a local
 heap of names), and datasets stored contiguously, compactly or in chunks
-indexed by a version-1 B-tree, unfiltered or through the Blosc filter
-(id 32001, decoded by ``blosc_codec``'s frame decoder). A chunk whose
-filter mask marks the filter as skipped is read raw; a chunk never written
-reads as zeros (h5py's default fill value). ``ds[i0:i1]`` decodes only
-the chunks that the rows overlap. What it does not cover raises, naming
-what is missing: other filters, the chunk indexes of data layout version 4
-(``libver="latest"``), attributes, dense link storage, writing chunks.
+indexed by a version-1 B-tree, unfiltered or through deflate or Blosc
+(decoded by ``zlib`` and ``blosc_codec``'s frame decoder). A chunk whose
+filter mask marks a filter as skipped is read without it; a chunk never
+written reads as zeros (h5py's default fill value). ``ds[i0:i1]`` decodes
+only the chunks that the rows overlap. What it does not cover raises,
+naming what is missing: other filters, the chunk indexes of data layout
+version 4 (``libver="latest"``), attributes, dense link storage.
 
 The surface is the part of ``h5py`` that this package uses: ``File(path,
-"r" | "w")``, ``Group.create_group``/``keys``/``[path]``/``[name] = array``,
-and ``Dataset.shape``/``dtype``/``chunks``/``[index]``/``[()]``/``np.asarray``.
+"r" | "w")``, ``Group.create_group``/``create_dataset``/``keys``/``[path]``/
+``[name] = array``, ``Dataset.shape``/``dtype``/``chunks``/``[index]``/
+``[()]``/``np.asarray``, and in write mode ``Dataset.resize``,
+``ds[rows] = array`` and ``Dataset.id.write_direct_chunk``.
 
 Format reference: the HDF5 File Format Specification, version 3.0
 (superblocks §II.A, v1 B-trees §III.A.1, SNOD §III.B, local heaps §III.D,
@@ -28,7 +40,9 @@ object headers §IV.A.1, messages §IV.A.2).
 """
 from __future__ import annotations
 
+import itertools
 import struct
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,6 +55,10 @@ _DATASPACE, _LINK_INFO, _DATATYPE, _FILL_VALUE, _LINK, _LAYOUT, _GROUP_INFO = (
     0x01, 0x02, 0x03, 0x05, 0x06, 0x08, 0x0A)
 _FILTERS, _CONTINUATION, _SYMBOL_TABLE = 0x0B, 0x10, 0x11
 BLOSC_FILTER_ID = 32001
+DEFLATE_FILTER_ID = 1
+_FILTER_NAMES = {DEFLATE_FILTER_ID: "deflate", BLOSC_FILTER_ID: "blosc"}
+_BTREE_K = 32  # chunk B-tree K of a version-2 superblock: 2K entries a node
+_OPTIONAL = 0x0001  # filter flag: a chunk may skip it (h5py sets it for both)
 _CHUNK_INDEXES = {1: "single chunk", 2: "implicit", 3: "fixed array", 4: "extensible array",
                   5: "version-2 B-tree"}
 
@@ -126,6 +144,66 @@ def _object_header(messages: bytes) -> bytes:
     return head + struct.pack("<I", checksum(head))
 
 
+def _dataspace_message(shape, maxshape=None) -> bytes:
+    """Version 2; ``maxshape`` (``None`` for an unlimited axis) adds the
+    maximum dimensions."""
+    space = struct.pack("<BBBB", 2, len(shape), 0 if maxshape is None else 1,
+                        1 if len(shape) else 0)
+    space += struct.pack(f"<{len(shape)}Q", *shape)
+    if maxshape is not None:
+        space += struct.pack(f"<{len(shape)}Q", *(_UNDEF if m is None else m for m in maxshape))
+    return space
+
+
+def _filter_message(filters) -> bytes:
+    """Filter pipeline message version 2 of ``filters``, (id, name, flags,
+    client data values) each, in the order they are applied."""
+    out = struct.pack("<BB", 2, len(filters))
+    for fid, name, flags, values in filters:
+        out += struct.pack("<H", fid)
+        raw = name.encode() + b"\0" if fid >= 256 else b""
+        if fid >= 256:  # filters of the HDF5 library itself carry no name
+            out += struct.pack("<H", len(raw))
+        out += struct.pack("<HH", flags, len(values)) + raw
+        out += struct.pack(f"<{len(values)}I", *values)
+    return out
+
+
+def _chunk_btree(w: "_Writer", entries, rank: int, itemsize: int) -> int:
+    """Write the version-1 B-tree (type 1) over ``entries``, (offsets, stored
+    size, filter mask, address) of each chunk in offset order, and return
+    its root's address. A key is the size, the mask and an 8-byte offset per
+    axis plus one (the element axis, 0); the last key of the tree holds the
+    last chunk's offsets with the element axis at ``itemsize``, as the HDF5
+    library writes it. Nodes hold at most 2K entries and are written at
+    their full size, which readers read whole."""
+    if not entries:
+        return _UNDEF
+    key_size = 8 + 8 * (rank + 1)
+    node_size = 24 + 2 * _BTREE_K * (key_size + 8) + key_size
+
+    def key(offsets, size, mask, last=0):
+        return struct.pack(f"<II{rank + 1}Q", size, mask, *offsets, last)
+
+    final = key(entries[-1][0], 0, 0, itemsize)
+    nodes = [(key(offsets, size, mask), addr) for offsets, size, mask, addr in entries]
+    level = 0
+    while True:
+        groups = [nodes[i:i + 2 * _BTREE_K] for i in range(0, len(nodes), 2 * _BTREE_K)]
+        base = w.pos
+        for g, children in enumerate(groups):
+            left = base + (g - 1) * node_size if g else _UNDEF
+            right = base + (g + 1) * node_size if g + 1 < len(groups) else _UNDEF
+            blob = b"TREE" + struct.pack("<BBHQQ", 1, level, len(children), left, right)
+            blob += b"".join(k + struct.pack("<Q", child) for k, child in children)
+            blob += groups[g + 1][0][0] if g + 1 < len(groups) else final
+            w.put(blob + b"\0" * (node_size - len(blob)))
+        if len(groups) == 1:
+            return base
+        nodes = [(children[0][0], base + g * node_size) for g, children in enumerate(groups)]
+        level += 1
+
+
 class _Writer:
     def __init__(self, f):
         self.f = f
@@ -134,6 +212,7 @@ class _Writer:
 
     def put(self, blob: bytes) -> int:
         addr = self.pos
+        self.f.seek(addr)  # a chunk read back in between may have moved it
         self.f.write(blob)
         self.pos += len(blob)
         return addr
@@ -142,9 +221,8 @@ class _Writer:
         arr = np.asarray(arr, order="C")  # keeps 0-d arrays 0-d
         raw = arr.tobytes()
         data_addr = self.put(raw) if raw else _UNDEF
-        space = struct.pack("<BBBB", 2, arr.ndim, 0, 1 if arr.ndim else 0)
-        space += struct.pack(f"<{arr.ndim}Q", *arr.shape)
-        msgs = (_message(_DATASPACE, space) + _message(_DATATYPE, _datatype_message(arr.dtype))
+        msgs = (_message(_DATASPACE, _dataspace_message(arr.shape))
+                + _message(_DATATYPE, _datatype_message(arr.dtype))
                 # fill value v3: late allocation, written if set, none set
                 + _message(_FILL_VALUE, bytes([3, 0x02 | (2 << 2)]))
                 + _message(_LAYOUT, struct.pack("<BBQQ", 3, 1, data_addr, len(raw))))
@@ -296,16 +374,34 @@ def _filters(data: bytes) -> List[Tuple[int, str]]:
 
 
 def _decode_chunk(raw: bytes, filters, mask: int) -> bytes:
-    """Undo the pipeline, last filter first; bit j of ``mask`` marks filter
-    j as skipped for this chunk."""
+    """Undo the pipeline (filters by id first), last filter first; bit j of
+    ``mask`` marks filter j as skipped for this chunk."""
     for j in reversed(range(len(filters))):
         if mask >> j & 1:
             continue
-        if filters[j][0] != BLOSC_FILTER_ID:  # refused when the dataset opened
-            raise AssertionError(filters[j])
-        from . import blosc_codec  # imports this module: taken here, not at import
+        if filters[j][0] == DEFLATE_FILTER_ID:
+            raw = zlib.decompress(raw)
+        elif filters[j][0] == BLOSC_FILTER_ID:
+            from . import blosc_codec  # imports this module: taken here, not at import
 
-        raw = blosc_codec.decompress_frame(raw)
+            raw = blosc_codec.decompress_frame(raw)
+        else:  # refused when the dataset opened
+            raise AssertionError(filters[j])
+    return raw
+
+
+def _encode_chunk(raw: bytes, filters, itemsize: int) -> bytes:
+    """Apply the pipeline of (id, name, flags, client data values) filters
+    in order: deflate at its level, Blosc as its 7 values say (typesize,
+    clevel, shuffle and compressor in slots 2, 4, 5 and 6)."""
+    for fid, _, _, values in filters:
+        if fid == DEFLATE_FILTER_ID:
+            raw = zlib.compress(raw, values[0] if values else 4)
+        else:
+            from . import blosc_codec
+
+            cname = {v: k for k, v in blosc_codec._COMPCODE.items()}[values[6]]
+            raw = blosc_codec.compress_frame(raw, itemsize, values[4], values[5], cname)
     return raw
 
 
@@ -325,11 +421,13 @@ class Dataset:
         self.dtype = _parse_datatype(msgs[_DATATYPE][0])
         self.chunks: Optional[Tuple[int, ...]] = None
         self._filters = _filters(msgs[_FILTERS][0]) if _FILTERS in msgs else []
+        self.filter_ids = tuple(fid for fid, _ in self._filters)
         for fid, fname in self._filters:
-            if fid != BLOSC_FILTER_ID:
+            if fid not in _FILTER_NAMES:
                 raise NotImplementedError(
                     f"{name}: HDF5 filter {fid} ({fname or 'unnamed'}) is not in h5lite, "
-                    f"which decodes only filter {BLOSC_FILTER_ID} (Blosc); read it with h5py")
+                    f"which decodes only filters {DEFLATE_FILTER_ID} (deflate) and "
+                    f"{BLOSC_FILTER_ID} (Blosc); read it with h5py")
         layout = msgs[_LAYOUT][0]
         version, cls = layout[0], layout[1]
         self._inline = None
@@ -442,6 +540,118 @@ class Dataset:
         return np.asarray(out, dtype=dtype)
 
 
+class ChunkedDatasetWriter:
+    """A chunked dataset of a file open for writing: its chunks go to the
+    file as they are written, its B-tree and header on ``close()``."""
+
+    def __init__(self, file: "File", name: str, shape, dtype, chunks, maxshape, filters):
+        self._file = file
+        self.name = name
+        self.shape = tuple(int(s) for s in shape)
+        self.dtype = np.dtype(dtype)
+        _datatype_message(self.dtype)  # refuse what cannot be stored, now
+        self.chunks = tuple(int(c) for c in chunks)
+        self.maxshape = None if maxshape is None else tuple(maxshape)
+        if not self.shape or len(self.chunks) != len(self.shape) or min(self.chunks) < 1:
+            raise ValueError(f"{name}: chunks {self.chunks} for shape {self.shape}")
+        if self.maxshape is not None and (len(self.maxshape) != len(self.shape) or any(
+                m is not None and m < s for m, s in zip(self.maxshape, self.shape))):
+            raise ValueError(f"{name}: maxshape {self.maxshape} for shape {self.shape}")
+        self._filters = filters  # (id, name, flags, client data values)
+        self.filter_ids = tuple(f[0] for f in filters)
+        self._index: Dict[Tuple[int, ...], Tuple[int, int, int]] = {}  # -> size, mask, address
+
+    @property
+    def id(self):
+        """h5py's low-level handle, for ``write_direct_chunk``."""
+        return self
+
+    def __len__(self):
+        return self.shape[0]
+
+    def resize(self, shape) -> None:
+        shape = (int(shape),) if np.ndim(shape) == 0 else tuple(int(s) for s in shape)
+        if self.maxshape is None or len(shape) != len(self.shape) or any(
+                m is not None and s > m for s, m in zip(shape, self.maxshape)):
+            raise ValueError(f"{self.name}: cannot resize {self.shape} to {shape} "
+                             f"(maxshape {self.maxshape})")
+        self.shape = shape
+        # chunks wholly outside the new extent are dropped, as HDF5 does
+        self._index = {o: v for o, v in self._index.items()
+                       if all(a < s for a, s in zip(o, shape))}
+
+    def write_direct_chunk(self, offsets, data, filter_mask: int = 0) -> None:
+        """Store ``data``, a chunk already through the pipeline (bit j of
+        ``filter_mask`` set where filter j was skipped), at ``offsets``."""
+        offsets = tuple(int(o) for o in offsets)
+        if len(offsets) != len(self.shape) or any(
+                o % c or o >= s for o, c, s in zip(offsets, self.chunks, self.shape)):
+            raise ValueError(f"{self.name}: no chunk at {offsets} (chunks {self.chunks}, "
+                             f"shape {self.shape})")
+        data = bytes(data)
+        self._index[offsets] = (len(data), int(filter_mask), self._file._writer.put(data))
+
+    def _read_chunk(self, offsets) -> np.ndarray:
+        if offsets not in self._index:
+            return np.zeros(self.chunks, self.dtype)
+        size, mask, addr = self._index[offsets]
+        fh = self._file._fh
+        fh.seek(addr)
+        raw = _decode_chunk(fh.read(size), self._filters, mask)
+        return np.frombuffer(raw, self.dtype, count=int(np.prod(self.chunks))).reshape(
+            self.chunks).copy()
+
+    def __setitem__(self, index, value) -> None:
+        """``ds[()]``, ``ds[...]`` or ``ds[i0:i1]`` = an array (broadcast):
+        each chunk the rows overlap is read back where it holds other rows,
+        filled and written anew through the pipeline."""
+        if index == () or index is Ellipsis:
+            i0, i1 = 0, self.shape[0]
+        elif isinstance(index, slice) and index.step in (None, 1):
+            i0, i1, _ = index.indices(self.shape[0])
+        else:
+            raise NotImplementedError(f"{self.name}: h5lite writes whole rows, ds[i0:i1] = ...")
+        rest = self.shape[1:]
+        value = np.broadcast_to(np.asarray(value, self.dtype), (max(i1 - i0, 0),) + rest)
+        c0 = self.chunks[0]
+        grids = [range(0, s, c) for s, c in zip(rest, self.chunks[1:])]
+        for o0 in range(i0 // c0 * c0, i1, c0):
+            for inner in itertools.product(*grids):
+                offsets = (o0,) + inner
+                block = self._read_chunk(offsets)
+                lo, hi = max(i0, o0), min(i1, o0 + c0)
+                span = tuple(slice(o, min(o + c, s))
+                             for o, c, s in zip(inner, self.chunks[1:], rest))
+                block[(slice(lo - o0, hi - o0),) + tuple(slice(0, sl.stop - sl.start)
+                                                         for sl in span)] = value[
+                    (slice(lo - i0, hi - i0),) + span]
+                self.write_direct_chunk(
+                    offsets, _encode_chunk(block.tobytes(), self._filters, self.dtype.itemsize))
+
+    def _write(self, w: "_Writer") -> int:
+        entries = [(o, *self._index[o]) for o in sorted(self._index)]
+        btree = _chunk_btree(w, entries, len(self.shape), self.dtype.itemsize)
+        layout = struct.pack("<BBBQ", 3, 2, len(self.shape) + 1, btree)
+        layout += struct.pack(f"<{len(self.chunks) + 1}I", *self.chunks, self.dtype.itemsize)
+        msgs = (_message(_DATASPACE, _dataspace_message(self.shape, self.maxshape))
+                + _message(_DATATYPE, _datatype_message(self.dtype))
+                # fill value v3: incremental allocation, written if set, none set
+                + _message(_FILL_VALUE, bytes([3, 0x03 | (2 << 2)])))
+        if self._filters:
+            msgs += _message(_FILTERS, _filter_message(self._filters))
+        return w.put(_object_header(msgs + _message(_LAYOUT, layout)))
+
+
+def _guess_chunks(shape, itemsize: int) -> Tuple[int, ...]:
+    """The whole array, its largest axis halved until a chunk holds at most
+    1 MiB (h5py's largest automatic chunk)."""
+    chunks = [max(int(s), 1) for s in shape]
+    while int(np.prod(chunks)) * itemsize > 1 << 20 and max(chunks) > 1:
+        i = int(np.argmax(chunks))
+        chunks[i] = (chunks[i] + 1) // 2
+    return tuple(chunks)
+
+
 class Group:
     def __init__(self, file: "File", name: str, links: Optional[Dict[str, int]] = None):
         self._file = file
@@ -503,10 +713,52 @@ class Group:
         _datatype_message(arr.dtype)  # refuse what cannot be stored, now
         self._children[name] = arr
 
+    def create_dataset(self, name: str, shape=None, dtype=None, data=None, chunks=None,
+                       maxshape=None, compression=None, compression_opts=None,
+                       allow_unknown_filter: bool = False):
+        """h5py's ``create_dataset``: contiguous unless ``chunks``,
+        ``maxshape`` or ``compression`` asks for chunks; ``compression`` is
+        ``"gzip"`` (deflate, level ``compression_opts`` or 4) or Blosc's
+        filter id 32001 with its 7 client data values in
+        ``compression_opts``. Other filters raise, naming them."""
+        self._check_writable()
+        if name in self._children:
+            raise ValueError(f"{name!r} exists")
+        if data is not None:
+            data = np.asarray(data, dtype)
+            shape, dtype = data.shape if shape is None else tuple(shape), data.dtype
+        dtype = np.dtype("<f4" if dtype is None else dtype)
+        filters = []
+        if compression in ("gzip", DEFLATE_FILTER_ID):
+            level = 4 if compression_opts is None else int(compression_opts)
+            filters.append((DEFLATE_FILTER_ID, "deflate", _OPTIONAL, (level,)))
+        elif compression == BLOSC_FILTER_ID:
+            if compression_opts is None or len(compression_opts) != 7:
+                raise ValueError(f"{name}: Blosc takes its 7 client data values, "
+                                 f"not {compression_opts!r}")
+            filters.append((BLOSC_FILTER_ID, "blosc", _OPTIONAL,
+                            tuple(int(v) for v in compression_opts)))
+        elif compression is not None:
+            raise NotImplementedError(
+                f"{name}: compression {compression!r} is not in h5lite, which writes "
+                f"filters {DEFLATE_FILTER_ID} (gzip) and {BLOSC_FILTER_ID} (Blosc) only")
+        if chunks is None and maxshape is None and not filters:
+            self[name] = np.zeros(shape, dtype) if data is None else data
+            return self._children[name]
+        if chunks is None or chunks is True:
+            chunks = _guess_chunks(shape, dtype.itemsize)
+        ds = ChunkedDatasetWriter(self._file, f"{self.name.rstrip('/')}/{name}", shape, dtype,
+                                  chunks, maxshape, filters)
+        if data is not None and data.size:
+            ds[()] = data
+        self._children[name] = ds
+        return ds
+
     def _write(self, w: _Writer) -> int:
         addrs = {}
         for name, child in self._children.items():
-            addrs[name] = child._write(w) if isinstance(child, Group) else w.dataset(child)
+            addrs[name] = (child._write(w) if isinstance(child, (Group, ChunkedDatasetWriter))
+                           else w.dataset(child))
         return w.group(addrs)
 
 
@@ -541,8 +793,8 @@ def _links_of(fh, msgs: Dict[int, list]) -> Dict[str, int]:
 
 
 class File(Group):
-    """``File(path, "r")`` reads; ``File(path, "w")`` builds the tree in
-    memory and writes it on ``close()``."""
+    """``File(path, "r")`` reads; ``File(path, "w")`` writes chunks as they
+    come and the rest of the tree on ``close()``."""
 
     def __init__(self, path, mode: str = "r"):
         if mode not in ("r", "w"):
@@ -561,6 +813,12 @@ class File(Group):
                 raise
             super().__init__(self, "/", links)
         else:
+            self._fh = open(path, "w+b")  # chunks are read back when rows are rewritten
+            try:
+                self._writer = _Writer(self._fh)
+            except BaseException:
+                self._fh.close()
+                raise
             super().__init__(self, "/")
 
     def _root_header(self, path) -> int:
@@ -585,12 +843,12 @@ class File(Group):
         return struct.unpack_from("<Q", sb, 36)[0]
 
     def close(self) -> None:
-        if self.mode == "w" and self._fh is None:
-            with open(self.filename, "wb") as fh:
-                self._fh = fh
-                w = _Writer(fh)
-                w.superblock(self._write(w))
-        elif self._fh is not None and not self._fh.closed:
+        if self._fh is None or self._fh.closed:
+            return
+        try:
+            if self.mode == "w":
+                self._writer.superblock(self._write(self._writer))
+        finally:
             self._fh.close()
 
     def __enter__(self):

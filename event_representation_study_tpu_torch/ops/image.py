@@ -26,23 +26,47 @@ def letterbox_geometry(
     return r, (new_unpad[1], new_unpad[0]), (dw, dh)
 
 
+def resize_weights(in_size: int, out_size: int, device=None) -> torch.Tensor:
+    """(out_size, in_size) float32 weights of ``jax.image.resize``'s
+    "linear" method along one axis: a triangle kernel at the half-pixel
+    sample positions, widened by the downscale factor when downsampling
+    (antialiasing), each row normalised to sum 1."""
+    scale = out_size / in_size
+    kernel_scale = max(1.0 / scale, 1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) / scale - 0.5
+    x = (sample[:, None] - torch.arange(in_size, dtype=torch.float32, device=device)).abs()
+    weights = (1.0 - x / kernel_scale).clamp_min(0.0)
+    total = weights.sum(1, keepdim=True)
+    weights = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return weights * inside[:, None]
+
+
 def letterbox_image(img: torch.Tensor, new_shape: int,
                     pad_value: float = PAD_VALUE) -> torch.Tensor:
     """(H, W, C) or (B, H, W, C) -> square ``new_shape`` letterboxed, the
     border filled with ``pad_value`` (114 on the 0..255 scale; the learned
     representation pads with 0).
 
-    Bilinear with half-pixel centres and no antialiasing, which equals
-    ``jax.image.resize(..., "linear")`` when upsampling (the Gen1 path:
-    240x304 -> 505x640)."""
+    The resize is ``jax.image.resize(..., "linear")``'s: when upsampling
+    (the Gen1 path: 240x304 -> 505x640) that is bilinear with half-pixel
+    centres, ``F.interpolate``; when downsampling (the 1 Mpx path:
+    1280x720 -> 640x360) the triangle kernel widens by the factor, so each
+    output averages the inputs under it, which ``F.interpolate`` does not:
+    two products with :func:`resize_weights`."""
     batched = img.dim() == 4
     if not batched:
         img = img[None]
     _, h0, w0, _ = img.shape
     _, (nh, nw), (dw, dh) = letterbox_geometry(h0, w0, new_shape)
     x = img.permute(0, 3, 1, 2)  # NCHW view
-    x = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False,
-                      antialias=False)
+    if nh >= h0 and nw >= w0:
+        x = F.interpolate(x, size=(nh, nw), mode="bilinear", align_corners=False,
+                          antialias=False)
+    else:
+        x = resize_weights(h0, nh, x.device).to(x.dtype) @ x
+        x = x @ resize_weights(w0, nw, x.device).to(x.dtype).T
     top = int(round(dh - 0.1))
     bottom = new_shape - nh - top
     left = int(round(dw - 0.1))

@@ -226,12 +226,11 @@ from event_representation_study_tpu_torch.events import h5_io
 root = sys.argv[1]
 write_gen1_fixture(root + "/training.h5", num_files=2, boxes_per_file=6, events_per_file=6000,
                    seed=5)
-try:
-    write_gen1_fixture(root + "/blosc.h5", blosc=True)
-    raise SystemExit("blosc without h5py did not raise")
-except NotImplementedError:
-    pass
+write_gen1_fixture(root + "/blosc.h5", num_files=2, boxes_per_file=6, events_per_file=6000,
+                   seed=5, blosc=True)
 out = {}
+ds = Gen1H5(root + "/blosc.h5", num_events=1500)
+out["blosc_events"] = np.stack([ds[i].events for i in range(len(ds))])
 for mode in ("count", "time"):
     ds = Gen1H5(root, num_events=1500, window_mode=mode, time_window=150_000)
     out[mode + "_events"] = np.stack([ds[i].events for i in range(len(ds))])
@@ -245,9 +244,10 @@ np.savez(root + "/out.npz", **out)
 
 def test_gen1_without_h5py(tmp_path):
     """Without h5py the port writes the Gen1 fixture through h5lite (plain
-    datasets; Blosc raises) and reads it and event files back: the same
-    windows and labels as the JAX package's reader (through h5py) on that
-    file, and the same datasets as the JAX package's writer."""
+    datasets, and Blosc chunks with ``blosc=True``) and reads it and event
+    files back: the same windows and labels as the JAX package's reader
+    (through h5py) on that file, and the same datasets as the JAX package's
+    writer."""
     import os
     import subprocess
     import sys
@@ -276,3 +276,7 @@ def test_gen1_without_h5py(tmp_path):
                      got[mode + "_labels"], np.stack([want[i].labels for i in range(len(want))]),
                      atol=0)
     assert_close("h5 events without h5py", got["ev_p"], 2 * (np.arange(50) % 2) - 1, atol=0)
+    want = jax_gen1.Gen1H5(tmp_path / "blosc.h5", num_events=1500)
+    assert_close("Blosc fixture written without h5py", got["blosc_events"],
+                 np.stack([want[i].events for i in range(len(want))]), atol=0)
+    assert_close("Blosc and plain fixtures", got["blosc_events"], got["count_events"], atol=0)

@@ -303,16 +303,20 @@ def test_h5lite_reads_earliest_layouts(tmp_path):
 
 def test_h5lite_refusals_name_what_is_missing(tmp_path):
     """Chunk indexes of data layout version 4 (libver latest) and filters
-    other than Blosc raise, naming the layout and the filter id."""
+    other than Blosc and deflate raise, naming the layout and the filter id
+    (here h5py's LZF, filter 32000); h5lite writes no other filter either."""
     with h5py.File(tmp_path / "latest.h5", "w", libver="latest") as f:
         f.create_dataset("chunked", data=np.arange(100), chunks=(10,))
         f.create_dataset("contiguous", data=np.arange(100))
-    with h5py.File(tmp_path / "gzip.h5", "w") as f:
-        f.create_dataset("gz", data=np.arange(100), chunks=(10,), compression="gzip")
+    with h5py.File(tmp_path / "lzf.h5", "w") as f:
+        f.create_dataset("lzf", data=np.arange(100), chunks=(10,), compression="lzf")
     f = h5lite.File(tmp_path / "latest.h5")
     np.testing.assert_array_equal(f["contiguous"][()], np.arange(100))
     with pytest.raises(NotImplementedError, match="data layout version 4 with a fixed array"):
         f["chunked"]
     f.close()
-    with pytest.raises(NotImplementedError, match="HDF5 filter 1 "):
-        h5lite.File(tmp_path / "gzip.h5")["gz"]
+    with pytest.raises(NotImplementedError, match="HDF5 filter 32000 "):
+        h5lite.File(tmp_path / "lzf.h5")["lzf"]
+    with h5lite.File(tmp_path / "w.h5", "w") as f, \
+            pytest.raises(NotImplementedError, match="compression 'lzf'"):
+        f.create_dataset("lzf", data=np.arange(100), compression="lzf")

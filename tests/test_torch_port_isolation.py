@@ -17,8 +17,9 @@ from event_representation_study_tpu_torch.ops import fused_scatter, roll
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
 # the representation library, the GWD ranking, the channel search, the
-# event windows, the N-ImageNet classification, the detector zoo and the
-# training variants and deploy tools, imported in the probe too
+# event windows, the N-ImageNet classification, the detector zoo, the
+# training variants and deploy tools, and the 1 Mpx data with the event-file
+# tools, imported in the probe too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
@@ -29,7 +30,9 @@ NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_s
                "models.swin_vit", "models.backbones", "models.necks", "models.layers",
                "utils.reparam", "models.learned_repr", "models.backend",
                "train.losses_variants", "train.rep_optimizer", "utils.quantize",
-               "utils.export")
+               "utils.export", "events.prophesee", "events.filters", "events.rosbag",
+               "data.gen4", "data.gen4_legacy", "cli.consolidate", "cli.convert",
+               "cli.precompute_reps")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -101,7 +104,7 @@ def test_evaler_defaults_to_cuda(no_cuda, tmp_path):
         Evaler(torch.nn.Identity(), None, 2, "OptimizedRepresentation")
 
 
-@pytest.mark.parametrize("cli", ["train", "eval", "gwd", "classify"])
+@pytest.mark.parametrize("cli", ["train", "eval", "gwd", "classify", "precompute_reps"])
 def test_cli_defaults_to_cuda(no_cuda, cli, tmp_path):
     import importlib
 
@@ -111,6 +114,8 @@ def test_cli_defaults_to_cuda(no_cuda, cli, tmp_path):
         args = ["--train-list", str(tmp_path / "list.txt"), "--val-list", str(tmp_path / "list.txt")]
     else:
         args = ["--data-path", str(tmp_path)]
+    if cli == "precompute_reps":
+        args += ["--output-dir", str(tmp_path / "out")]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(args)
 
@@ -240,15 +245,13 @@ def _bf16_step(tmp):
     [
         (lambda tmp: _trainer(tmp, plot_images=True), "M19"),
         (_bf16_step, "M20"),
-        (lambda tmp: h5_io.load_events_from_path(tmp / "events.dat"), "M19"),
         (_images_trainer, "M19"),
         (lambda tmp: _trainer(tmp, steps_per_dispatch=2), "M7"),
     ],
     # ids of paths since ported keep their names: "train_ptq" for a bf16
-    # train step (M20), "hdf5" for a Prophesee .dat file (M19), "backbone"
-    # for an image-folder dataset (M19), "train_event_aug" for multi-step
-    # dispatch (M7)
-    ids=["train_plots", "train_ptq", "hdf5", "backbone", "train_event_aug"],
+    # train step (M20), "backbone" for an image-folder dataset (M19),
+    # "train_event_aug" for multi-step dispatch (M7)
+    ids=["train_plots", "train_ptq", "backbone", "train_event_aug"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
@@ -294,12 +297,26 @@ def _build(**kw):
     return build_model(load_config(REPO / "configs/gen1_optimized.py"), 2, device="meta", **kw)
 
 
-@pytest.mark.parametrize("suffix", [".npz", ".npy", ".npz-structured"])
+@pytest.mark.parametrize("suffix", [".npz", ".npy", ".npz-structured", ".dat", ".bin", ".bag"])
 def test_event_file_loading(suffix, tmp_path):
     rng = np.random.default_rng(0)
     cols = np.stack([rng.integers(0, 30, 50), rng.integers(0, 20, 50),
                      np.sort(rng.integers(0, 10**6, 50)), rng.integers(0, 2, 50)], 1)
-    if suffix == ".npy":
+    if suffix in (".dat", ".bin", ".bag"):  # Prophesee EVT2.0, N-MNIST, ROS1 bag
+        from event_representation_study_tpu_torch.events import prophesee, rosbag
+
+        path = tmp_path / f"e{suffix}"
+        ev = np.zeros(50, dtype=prophesee.EVENT_DTYPE)
+        ev["x"], ev["y"], ev["t"], ev["p"] = cols[:, 0], cols[:, 1], cols[:, 2], 2 * cols[:, 3] - 1
+        if suffix == ".dat":
+            prophesee.write_dat(path, ev, 20, 30)
+        elif suffix == ".bin":
+            ev["t"] //= 1000  # N-MNIST timestamps fit 23 bits
+            cols[:, 2] //= 1000
+            prophesee.write_nmnist_bin(path, ev)
+        else:
+            rosbag.write_events_to_rosbag(path, ev, height=20, width=30)
+    elif suffix == ".npy":
         path = tmp_path / "e.npy"
         np.save(path, cols)
     elif suffix == ".npz":
