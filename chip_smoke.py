@@ -3,6 +3,8 @@
 CUDA card and check it.
 
 Phases, one printed line each:
+0. env: which of cv2, matplotlib, tensorboard and wandb import on this
+   machine, with their versions (a report: no phase depends on it).
 1. device: CUDA must be present; the card's name and power limit.
 2. build: the port's CUDA kernels from ``csrc/``.
 3. ergo12: ERGO-12 for 8 Gen1 windows of 50,000 events (240x304) on the
@@ -43,6 +45,22 @@ Phases, one printed line each:
 10. train_reference: one step of a shrunk detector at 128 px on the card
    and on the CPU from the same weights: loss, gradients, updated parameters
    and BatchNorm statistics must agree.
+10a. multi_step: K steps a call (``make_multi_train_step``, K = 4) of the
+   full-width detector on the train phase's batch shape: from one saved
+   state, 4 per-batch steps, one K = 4 call with the EMA blended every step
+   and one with it blended once (``ema_cadence="dispatch"``), each timed
+   after its own warm-up (ms a step, peak memory, K1 4 and K3 8 launches a
+   run); the K-step call held against the per-batch steps (loss parts 1e-4
+   relative, parameter updates 2e-2 of leaf scale) and the dispatch cadence
+   against the step cadence (parameters as above, the EMA 2e-3, 4 EMA
+   updates).
+10b. bf16_train: the same detector built with ``dtype=torch.bfloat16`` from
+   the saved state on the same batches: a warm-up and 6 timed steps (K1 once
+   and K3 twice a step, every K3 source bf16), the first step's loss within
+   1e-2 relative of the f32 step's; kernel_K3_bf16: K3 at the bf16 step's
+   captured shapes against its plain version, timed beside its bound and
+   ``torch.gather``; bf16_reference: the shrunk bf16 step at 128 px card vs
+   CPU, within twice the CPU's own bf16-vs-f32 distances.
 11. event_mosaic: the event-space strong augmentation
    (``reps/event_mosaic.py``) of 8 windows plus a partner pool of 2 at 640²
    with the paper's recipe, one K1 launch, against the same call on the CPU
@@ -57,6 +75,12 @@ Phases, one printed line each:
    Trainer's AP. K1 runs exactly once a step and once an eval batch, K3
    never. Prints the loader's host ms per batch, step ms, the eval speed
    slots, checkpoint seconds and bytes (``trainer_host_ms``).
+12a. multi_step_trainer: ``cli/train.py --steps-per-dispatch 4
+   --ema-cadence dispatch`` with ``use_tensorboard`` on synthetic splits of
+   5 batches an epoch (one K-step call, one remainder step) for 1 epoch and
+   an eval: the calls and their launches, the step median, the "Model
+   Summary" line (140.3M parameters, GFLOPs), and the TensorBoard event
+   file's records (CRCs verified, a scalar event at every logged step).
 13. representations: every name of ``batched_representation`` (voxel grid,
    MDES, ERGO-12, event stack, histogram, TORE, time surface) on 8 windows
    of 50,000 events at 240x304 on the card, against the same call on the
@@ -176,6 +200,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -495,16 +520,17 @@ def make_batch(blocks, labels, hyp, rng, img: int = IMG):
     return Batch(None, blocks, lab[..., 0], lab[..., 1:5], mask, AugPlan(**plan))
 
 
-def capture_roll_inputs(fn):
-    """Run ``fn`` and return its result with the arguments it passed to the
-    per-row roll (K3's wrapper), one tuple per call."""
+def capture_roll_inputs(fn, keep=lambda args: args):
+    """Run ``fn`` and return its result with ``keep`` of the arguments it
+    passed to the per-row roll (K3's wrapper; by default the arguments
+    themselves), one entry per call."""
     from event_representation_study_tpu_torch.ops import warp
 
     seen = []
     real = warp.roll_rows
 
     def roll_rows(*args):
-        seen.append(args)
+        seen.append(keep(args))
         return real(*args)
 
     warp.roll_rows = roll_rows
@@ -677,11 +703,13 @@ def train_phase(dev):
     return launches, k3_args
 
 
-def step_stages(state, step, batches, dev, mosaic: bool = True):
+def step_stages(state, step, batches, dev, mosaic: bool = True, gather_dtype=None):
     """Where a step's device time goes: its stages replayed one by one on
-    the first 3 batches, each stage's ms from CUDA events. With ``mosaic``,
-    also event_mosaic (Gen1 windows): the other executor of the same plan
-    (aug_mode="event"), which replaces ergo12 + letterbox + warp."""
+    the first 3 batches, each stage's ms from CUDA events; the warp gathers
+    its source in ``gather_dtype`` (bf16 for a bf16 model, as the step
+    does). With ``mosaic``, also event_mosaic (Gen1 windows): the other
+    executor of the same plan (aug_mode="event"), which replaces ergo12 +
+    letterbox + warp."""
     from event_representation_study_tpu_torch.ops.image import letterbox_image
     from event_representation_study_tpu_torch.parallel.train_step import batch_on_device
     from event_representation_study_tpu_torch.reps.event_mosaic import mosaic_event_rep
@@ -696,7 +724,8 @@ def step_stages(state, step, batches, dev, mosaic: bool = True):
         ev[1].record()
         img = letterbox_image(rep, IMG)
         ev[2].record()
-        imgs = (step.warp(img, batch.aug, IMG) / 255.0).permute(0, 3, 1, 2)
+        imgs = (step.warp(img, batch.aug, IMG, gather_dtype=gather_dtype) / 255.0
+                ).permute(0, 3, 1, 2)
         ev[3].record()
         state.model.zero_grad(set_to_none=True)
         loss, _ = step.loss_fn(state.model, imgs, batch, 5)
@@ -839,7 +868,8 @@ REF_IMG = 128  # the image size of the card-vs-CPU train steps
 
 
 def card_vs_cpu_step(dev, cfg, batch, model_kw=None, step_kw=None, teacher=None,
-                     dtype=torch.float32, held=lambda leaf: True):
+                     dtype=torch.float32, held=lambda leaf: True, raw: bool = False,
+                     preds: str = "_pred_"):
     """One train step (epoch 0, REF_IMG px) of the detector of ``cfg``
     (``build_model`` given ``model_kw``, random pred convs, parameters in
     ``dtype``) on the card and on the CPU from the same weights; a
@@ -847,7 +877,10 @@ def card_vs_cpu_step(dev, cfg, batch, model_kw=None, step_kw=None, teacher=None,
     the CPU, parts on the card, errors): the loss's relative error, and for
     gradients, parameter updates and BatchNorm statistics the largest
     card-CPU difference of a leaf that ``held`` names over its largest CPU
-    entry plus 1e-3 of the largest over all leaves, with the leaf."""
+    entry plus 1e-3 of the largest over all leaves, with the leaf. With
+    ``raw``, also each device's parts, gradients, updates and statistics.
+    ``preds`` names the pred convs drawn at random (the rest keep their
+    init)."""
     from event_representation_study_tpu_torch.models import build_model
     from event_representation_study_tpu_torch.parallel.train_step import (
         TrainState, make_train_step)
@@ -857,7 +890,7 @@ def card_vs_cpu_step(dev, cfg, batch, model_kw=None, step_kw=None, teacher=None,
     model_kw = model_kw or {}
     base = build_model(cfg, 2, device="cpu", generator=torch.Generator().manual_seed(4),
                        **model_kw)
-    randomize_preds_(base, torch.Generator().manual_seed(6))
+    randomize_preds_(base, torch.Generator().manual_seed(6), which=preds)
     out = {}
     for d in ("cpu", dev):
         model = copy.deepcopy(base).to(d, dtype)
@@ -879,16 +912,29 @@ def card_vs_cpu_step(dev, cfg, batch, model_kw=None, step_kw=None, teacher=None,
             "bn": {k: v.cpu() for k, v in model.state_dict().items() if "running" in k},
         }
 
-    def leafwise(key):
-        got, want = out[dev][key], out["cpu"][key]
-        top = max(v.abs().max().item() for v in want.values())
-        return max(((((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-3 * top)).item(),
-                     k) for k in want if held(k)), default=(0.0, None))
-
     c, g = out["cpu"]["parts"], out[dev]["parts"]
-    errs = {"loss_rel": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
-            "grads": leafwise("grads"), "updates": leafwise("delta"), "bn_stats": leafwise("bn")}
-    return c, g, errs
+    errs = step_errors(out[dev], out["cpu"], held)
+    return (c, g, errs, out) if raw else (c, g, errs)
+
+
+def step_errors(got, want, held=lambda leaf: True):
+    """The loss's relative error, and for gradients, parameter updates and
+    BatchNorm statistics the largest difference of a leaf over its largest
+    entry in ``want`` plus 1e-3 of the largest over all leaves, with the
+    leaf (``got`` and ``want`` as :func:`card_vs_cpu_step` collects them)."""
+    return {"loss_rel": abs(got["parts"]["loss"] - want["parts"]["loss"])
+            / abs(want["parts"]["loss"]),
+            **{name: leaf_error(got[key], want[key], held)
+               for name, key in (("grads", "grads"), ("updates", "delta"), ("bn_stats", "bn"))}}
+
+
+def leaf_error(got, want, held=lambda leaf: True):
+    """The largest difference of a leaf that ``held`` names over its
+    largest entry in ``want`` plus 1e-3 of the largest over all leaves,
+    with the leaf."""
+    top = max(v.abs().max().item() for v in want.values())
+    return max(((((got[k] - want[k]).abs().max() / (want[k].abs().max() + 1e-3 * top)).item(), k)
+                for k in want if held(k)), default=(0.0, None))
 
 
 STEP_TOLERANCE = ("loss 1e-4 relative; gradients and parameter updates 2e-2, BN statistics "
@@ -916,6 +962,419 @@ def train_reference(dev):
         tf32=tf32_state())
     require(g["num_pos"] == c["num_pos"] > 0, f"positive anchors {g['num_pos']} vs {c['num_pos']}")
     require(step_within(errs), f"train step card vs CPU: {errs}")
+
+
+# -- K steps a call, the bf16 step --------------------------------------------
+
+MULTI_K = 4  # steps a K-step call
+MULTI_TOLERANCE = ("loss parts 1e-4 relative; parameter updates 2e-2 and the EMA 2e-3 (the "
+                   "JAX package's bound for the once-a-call blend, tests/test_train.py, on "
+                   "leaves of order 1), each of a leaf's largest entry plus 1e-3 of the "
+                   "largest over all leaves: the blends part by the last decay times a step's "
+                   "drift, and the BN running variances here are far from order 1; "
+                   "4 EMA updates")
+BF16_LOSS_RTOL = 1e-2  # first bf16 step vs the f32 step; the CPU test at 128 px: 1.8e-3
+BF16_STEPS = 6
+
+
+def state_snapshot(state):
+    """Copies of everything a step changes: parameters and BN statistics,
+    the optimizer's state, the EMA and the counters."""
+    opt = state.opt_state.state_dict()
+    return ({k: v.clone() for k, v in state.model.state_dict().items()},
+            {**opt, "momentum": {k: v.clone() for k, v in opt["momentum"].items()}},
+            {k: v.clone() for k, v in state.ema.variables.items()}, state.ema.updates,
+            state.step)
+
+
+def state_restore(state, snap):
+    from event_representation_study_tpu_torch.train.ema import EMAState
+
+    model, opt, ema, updates, step = snap
+    state.model.load_state_dict(model)
+    state.opt_state.load_state_dict(opt)
+    for k, v in state.ema.variables.items():
+        v.copy_(ema[k])
+    state.ema = EMAState(state.ema.variables, updates)
+    state.step = step
+    return state
+
+
+def multi_step_phase(dev):
+    """The paper detector at full width on the train cell's batches (8 x
+    50,000-event windows at 640², image-mode strong augmentation: K1 once,
+    K3 twice a step): from one saved state, 4 per-batch steps, one K = 4
+    call with the EMA blended every step and one with it blended once
+    (``ema_cadence="dispatch"``), each timed after a warm-up of its own.
+
+    The runs are then repeated from the saved state with deterministic
+    algorithms (cuDNN's and torch's) for the comparison, the per-batch run
+    twice: random weights at a full learning rate make a few steps chaotic,
+    and cuDNN's default backward is not bit-reproducible, so two ordinary
+    per-batch runs already part by ~0.5% in the third step's loss. Each
+    comparison holds the MULTI_TOLERANCE figures, or, where the two
+    identical per-batch runs part by more, twice their distance. Returns
+    (the saved model state, the batches, the first per-batch step's loss,
+    launches {run: {kernel: n}})."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        make_multi_train_step, stack_batches)
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    state, step, batches, info = train_setup(dev, BF16_STEPS + 1)
+    cfg = load_config("configs/gen1_optimized.py")
+    group = batches[:MULTI_K]
+    stacked = stack_batches(group)
+    multi = {c: make_multi_train_step(loss_config(cfg), MULTI_K, ema_cadence=c,
+                                      representation="OptimizedRepresentation", rep_hw=(H, W),
+                                      img_size=IMG, warp_impl="separable", device=dev)
+             for c in ("step", "dispatch")}
+
+    def per_batch(st):
+        parts = []
+        for b in group:
+            st, p = step(st, b, 5)
+            parts.append(p)
+        return st, {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+
+    runs = {"per_batch": per_batch,
+            "k_step": lambda st: multi["step"](st, stacked, 5),
+            "k_dispatch": lambda st: multi["dispatch"](st, stacked, 5)}
+    snap = state_snapshot(state)
+    p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+
+    def result(run):
+        state_restore(state, snap)
+        _, parts = run(state)
+        return {"parts": {k: v.tolist() for k, v in parts.items()},
+                "delta": {n: p.detach() - p0[n] for n, p in state.model.named_parameters()},
+                "ema": {k: v.clone() for k, v in state.ema.variables.items()},
+                "ema_updates": state.ema.updates, "step": state.step}
+
+    timed, launches = {}, {}
+    for name, run in runs.items():
+        state_restore(state, snap)
+        run(state)  # warm-up
+        state_restore(state, snap)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.reset_launches()
+        roll.reset_launches()
+        t = time.perf_counter()
+        _, parts = run(state)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches[name] = {k: v for k, v in {**fs.LAUNCHES, **roll.LAUNCHES}.items() if v}
+        timed[name] = {"ms_per_step": ms / MULTI_K, "call_ms": ms,
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                       "loss": parts["loss"].tolist()}
+    first_loss = timed["per_batch"]["loss"][0]
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = {"per_batch_a": result(per_batch), "per_batch_b": result(per_batch),
+               "k_step": result(runs["k_step"]), "k_dispatch": result(runs["k_dispatch"])}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+    def dist(a, b):
+        return {"parts_rel": max(abs(x - y) / abs(y) for k in ("loss", "iou", "dfl", "cls")
+                                 for x, y in zip(a["parts"][k], b["parts"][k])),
+                "updates": leaf_error(a["delta"], b["delta"])[0],
+                "ema": leaf_error(a["ema"], b["ema"]),
+                "ema_abs": max((a["ema"][k] - b["ema"][k]).abs().max().item() for k in b["ema"])}
+
+    noise = dist(out["per_batch_b"], out["per_batch_a"])
+    errs = {"k_step_vs_per_batch": dist(out["k_step"], out["per_batch_a"]),
+            "dispatch_vs_step": dist(out["k_dispatch"], out["k_step"]),
+            "per_batch_repeat": noise}
+    fixed = {"parts_rel": 1e-4, "updates": 2e-2, "ema": 2e-3}
+    allowed = {k: max(v, 2 * (noise[k][0] if k == "ema" else noise[k])) for k, v in fixed.items()}
+    say("multi_step", k=MULTI_K, batch=B, events_per_window=N, img=IMG,
+        params=info["params"], tf32=tf32_state(), launches=launches, **timed,
+        errors=errs, allowed=allowed, tolerance=MULTI_TOLERANCE + "; or twice the distance of "
+        "two identical per-batch runs where that is larger (compared with deterministic "
+        "algorithms)", compared={k: {f: r[f] for f in ("parts", "ema_updates", "step")}
+                                 for k, r in out.items()})
+    for name, n in launches.items():
+        require(n.get(fs.K1) == MULTI_K and n.get(roll.K3) == 2 * MULTI_K,
+                f"{name}: launches {n} for {MULTI_K} steps")
+    require(all(math.isfinite(v) for r in out.values() for vs in r["parts"].values() for v in vs),
+            "finite loss parts")
+    require(all(r["step"] == r["ema_updates"] == MULTI_K for r in out.values()),
+            "4 steps and 4 EMA updates a run")
+    ks, kd = errs["k_step_vs_per_batch"], errs["dispatch_vs_step"]
+    require(ks["parts_rel"] <= allowed["parts_rel"] and ks["updates"] <= allowed["updates"]
+            and ks["ema"][0] <= allowed["ema"], f"K-step call: {errs} > {allowed}")
+    require(kd["updates"] <= allowed["updates"] and kd["ema"][0] <= allowed["ema"],
+            f"dispatch cadence: {errs} > {allowed}")
+    model_state = snap[0]
+    del state, step, multi, out, snap, p0
+    torch.cuda.empty_cache()
+    return model_state, batches, first_loss, launches
+
+
+def bf16_train_phase(dev, model_state, batches, f32_loss):
+    """The paper detector built with ``dtype=torch.bfloat16`` (autocast over
+    float32 weights) from the multi_step phase's saved state, on its
+    batches: a warm-up step (its loss against the f32 step's from the same
+    weights and batch) and 6 timed steps (3 ATSS + 3 TAL); every K3 launch
+    must take a bf16 source. Returns (launches, the warm-up's K3
+    arguments)."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+
+    state, step, _, info = train_setup(dev, 0, model_kw={"dtype": torch.bfloat16},
+                                       batches=batches)
+    state.model.load_state_dict(model_state)
+    t0 = time.perf_counter()
+    (state, parts), k3_args = capture_roll_inputs(lambda: step(state, batches[0], 5))
+    warm = {k: v.item() for k, v in parts.items()}
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    (state, times, per_step, launches, peak), dtypes = capture_roll_inputs(
+        lambda: timed_steps(state, step, batches[1:]), keep=lambda args: str(args[0].dtype))
+    loss_rel = abs(warm["loss"] - f32_loss) / abs(f32_loss)
+    say("bf16_train", batch=B, events_per_window=N, img=IMG, params=info["params"],
+        warmup_step=warm, warmup_step_ms=warm_ms, f32_first_loss=f32_loss,
+        first_loss_rel_vs_f32=loss_rel,
+        tolerance=f"first loss within {BF16_LOSS_RTOL} relative of the f32 step's (the CPU "
+                  "test at 128 px: 1.8e-3 port, 1.6e-3 JAX)",
+        ms_per_step=times, median_ms=statistics.median(times), peak_mem_bytes=peak,
+        steps=per_step, launches=launches, roll_source_dtypes=sorted(set(dtypes)),
+        roll_calls=len(dtypes), warmup_roll_dtypes=[str(a[0].dtype) for a in k3_args],
+        param_dtypes=sorted({str(p.dtype) for p in state.model.parameters()}),
+        tf32=tf32_state())
+    require(launches[fs.K1] == BF16_STEPS and launches[roll.K3] == 2 * BF16_STEPS,
+            f"bf16 steps: launches {launches}")
+    require(dtypes == ["torch.bfloat16"] * 2 * BF16_STEPS and len(k3_args) == 2
+            and all(a[0].dtype == torch.bfloat16 for a in k3_args),
+            f"bf16 roll sources: {dtypes}, warm-up {[a[0].dtype for a in k3_args]}")
+    require(all(math.isfinite(v) for st in per_step for v in st.values()), "finite bf16 losses")
+    require(all(p.dtype == torch.float32 for p in state.model.parameters()), "f32 weights")
+    require(loss_rel <= BF16_LOSS_RTOL, f"bf16 first loss vs f32: {loss_rel}")
+    stages = step_stages(state, step, batches, dev, mosaic=False, gather_dtype=torch.bfloat16)
+    say("bf16_train_stages_ms", epoch=5, tf32=tf32_state(),
+        **{k: statistics.median(v) for k, v in stages.items()}, all_runs=stages)
+    del state, step
+    torch.cuda.empty_cache()
+    return launches, k3_args
+
+
+def rel_l2(got, want, key) -> float:
+    """||got - want|| / ||want|| over every leaf of ``key`` at once."""
+    num = sum(float(((got[key][k] - w).double() ** 2).sum()) for k, w in want[key].items())
+    return math.sqrt(num / sum(float((w.double() ** 2).sum()) for w in want[key].values()))
+
+
+def bf16_reference(dev):
+    """The shrunk bf16 step at 128 px on the card and on the CPU from the
+    same weights. bf16 rounding of the activations, which the two devices'
+    autocast round apart, moves single leaves far (a residual scale's
+    gradient sums a whole tensor: 5.8x its scale between bf16 and f32 on
+    the CPU), so the step is held as a whole: the loss, and the relative L2
+    distance over all gradients, all updates and all BN statistics, each
+    within twice the CPU's own bf16-vs-f32 distance plus 1e-3."""
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    small = load_config("configs/gen1_optimized.py", overrides=SMALL)
+    hyp = dict(small["data_aug"], mosaic=1.0, mixup=1.0)
+    rng = np.random.default_rng(8)
+    batch = make_batch(fake_batch(9, n_windows=4, n_events=5000), fake_labels(rng, 4, REF_IMG),
+                       hyp, rng, REF_IMG)
+    # the class preds at their init, as the full-width steps keep them:
+    # random ones saturate the scores, and the varifocal loss's gradient
+    # then swamps the step in rounding
+    c, g, errs, out16 = card_vs_cpu_step(dev, small, batch, model_kw={"dtype": torch.bfloat16},
+                                         raw=True, preds="reg_pred")
+    _, _, _, out32 = card_vs_cpu_step(dev, small, batch, raw=True, preds="reg_pred")
+
+    def distances(got, want):
+        return {"loss_rel": abs(got["parts"]["loss"] - want["parts"]["loss"])
+                / abs(want["parts"]["loss"]),
+                **{f"{key}_l2": rel_l2(got, want, key) for key in ("grads", "delta", "bn")}}
+
+    held = distances(out16[dev], out16["cpu"])
+    cpu_dev = distances(out16["cpu"], out32["cpu"])
+    allowed = {k: 2 * v + 1e-3 for k, v in cpu_dev.items()}
+    say("bf16_reference", parts_card=g, parts_cpu=c, distances=held,
+        cpu_bf16_vs_f32=cpu_dev, allowed=allowed, leafwise_errors=errs,
+        tolerance="each distance (the loss relative; gradients, updates, BN statistics as "
+                  "relative L2 over all leaves) within 2x the CPU's bf16-vs-f32 one plus 1e-3",
+        tf32=tf32_state())
+    require(g["num_pos"] == c["num_pos"] > 0, f"positive anchors {g['num_pos']} vs {c['num_pos']}")
+    require(all(held[k] <= allowed[k] for k in held), f"bf16 step card vs CPU: {held} > {allowed}")
+
+
+def tb_records(path):
+    """(step, {tag: value}) of each scalar event of a TensorBoard event
+    file, its framing CRCs verified (length and data, TFRecord's masked
+    CRC32-C) and the Event protos decoded by hand: this machine need not
+    have the ``tensorboard`` package."""
+    import struct
+
+    from event_representation_study_tpu_torch.utils.tb_native import masked_crc
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            key, i = varint(buf, i)
+            num, wire = key >> 3, key & 7
+            if wire == 0:
+                val, i = varint(buf, i)
+            elif wire == 1:
+                val, i = buf[i:i + 8], i + 8
+            elif wire == 5:
+                val, i = buf[i:i + 4], i + 4
+            else:
+                n, i = varint(buf, i)
+                val, i = buf[i:i + n], i + n
+            yield num, val
+
+    def varint(buf, i):
+        out = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            out |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return out, i
+
+    data, off, records = path.read_bytes(), 0, []
+    while off < len(data):
+        header = data[off:off + 8]
+        (length,) = struct.unpack("<Q", header)
+        payload = data[off + 12:off + 12 + length]
+        require(struct.unpack("<I", data[off + 8:off + 12])[0] == masked_crc(header)
+                and struct.unpack("<I", data[off + 12 + length:off + 16 + length])[0]
+                == masked_crc(payload), f"event record CRC at byte {off}")
+        off += 16 + length
+        ev = dict(fields(payload))
+        if 5 in ev:  # summary: values of (tag, simple_value)
+            values = {}
+            for num, v in fields(ev[5]):
+                f = dict(fields(v))
+                if 2 in f:
+                    values[f[1].decode()] = struct.unpack("<f", f[2])[0]
+            records.append((ev.get(2, 0), values))
+    return records
+
+
+def multi_step_trainer_phase(dev):
+    """``cli/train.py --steps-per-dispatch 4 --ema-cadence dispatch`` on the
+    trainer phase's synthetic splits with 5 batches an epoch (one K-step
+    call and one remainder step), 1 epoch with the event-space strong
+    augmentation (K1 once a step, K3 never) and an eval, the TensorBoard
+    writer on (``use_tensorboard``) and the loss logged every 4 steps.
+    Returns the K1 launches."""
+    import logging
+    import pathlib
+    import tempfile
+
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.train import engine, evaler
+
+    calls, evals, summary = [], [], []
+    real = {"multi": engine.make_multi_train_step, "step": engine.make_train_step,
+            "eval": evaler.make_eval_step, "init": engine.Trainer.__init__}
+
+    def timed(kind, fn):
+        def call(*a):
+            before, t = (fs.LAUNCHES[fs.K1], roll.LAUNCHES[roll.K3]), time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            calls.append({"kind": kind, "ms": (time.perf_counter() - t) * 1e3,
+                          "k1": fs.LAUNCHES[fs.K1] - before[0],
+                          "k3": roll.LAUNCHES[roll.K3] - before[1]})
+            return out
+
+        return call
+
+    def counted(*a, **k):
+        step = real["eval"](*a, **k)
+
+        def run(*b):
+            before = fs.LAUNCHES[fs.K1]
+            out = step(*b)
+            evals.append(fs.LAUNCHES[fs.K1] - before)
+            return out
+
+        return run
+
+    def init(self, *a, **k):
+        real["init"](self, *a, **k)
+        self.log_interval = MULTI_K  # every call crosses a log step
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "Model Summary" in record.getMessage():
+                summary.append(record.getMessage())
+
+    handler = Catch()
+    logging.getLogger("engine").addHandler(handler)
+    engine.make_multi_train_step = lambda *a, **k: timed("k_call", real["multi"](*a, **k))
+    engine.make_train_step = lambda *a, **k: timed("step", real["step"](*a, **k))
+    evaler.make_eval_step, engine.Trainer.__init__ = counted, init
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = pathlib.Path(tmp)
+            _trainer_fixture(root, train_boxes=20)  # 40 windows: 5 batches of 8
+            fs.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tr = train_cli.main([
+                "--conf", "configs/gen1_optimized.py", "--data-path", tmp,
+                "--batch-size", str(B), "--img-size", str(IMG), "--num-events", str(N),
+                "--augment", "--aug-mode", "auto", "--stop-aug-last-n-epoch", "0",
+                "--epochs", "1", "--steps-per-dispatch", str(MULTI_K), "--ema-cadence",
+                "dispatch", "--output-dir", f"{tmp}/run", "--override", "use_tensorboard=True"])
+            run_s = time.perf_counter() - t0
+            k1 = fs.LAUNCHES[fs.K1]
+            peak = torch.cuda.max_memory_allocated()
+            tb = sorted((root / "run" / "tb").glob("events.out.tfevents.*"))
+            records = tb_records(tb[0]) if len(tb) == 1 else []
+            logged = [json.loads(ln)["step"]
+                      for ln in (root / "run" / "metrics.jsonl").read_text().splitlines()]
+            info = {"loader_batches": len(tr.train_loader), "steps": tr.state.step,
+                    "ema_updates": tr.state.ema.updates, "aug_mode": tr.aug_mode,
+                    "steps_per_dispatch": tr.steps_per_dispatch, "best_ap": tr.best_ap}
+            del tr
+    finally:
+        engine.make_multi_train_step, engine.make_train_step = real["multi"], real["step"]
+        evaler.make_eval_step, engine.Trainer.__init__ = real["eval"], real["init"]
+        logging.getLogger("engine").removeHandler(handler)
+    torch.cuda.empty_cache()
+    k_calls = [c for c in calls if c["kind"] == "k_call"]
+    steps = [c for c in calls if c["kind"] == "step"]
+    step_ms = [c["ms"] / MULTI_K for c in k_calls] + [c["ms"] for c in steps]
+    tb_steps = sorted({st for st, vals in records if vals})
+    say("multi_step_trainer", **info, run_s=run_s, calls=calls,
+        step_ms_median=statistics.median(step_ms), k_call_ms_per_step=[c["ms"] / MULTI_K
+                                                                        for c in k_calls],
+        remainder_step_ms=[c["ms"] for c in steps], eval_k1_per_batch=evals, k1_launches=k1,
+        model_summary=summary, tb_files=len(tb), tb_records=len(records),
+        tb_scalar_steps=tb_steps, logged_steps=logged, peak_mem_bytes=peak, tf32=tf32_state())
+    require(info["loader_batches"] == MULTI_K + 1, f"{info['loader_batches']} batches an epoch")
+    require([c["kind"] for c in calls] == ["k_call", "step"], f"calls {calls}")
+    require(k_calls[0]["k1"] == MULTI_K and steps[0]["k1"] == 1
+            and all(c["k3"] == 0 for c in calls), f"launches {calls}")
+    require(info["steps"] == info["ema_updates"] == MULTI_K + 1, f"counters {info}")
+    require(k1 == MULTI_K + 1 + len(evals) and all(e == 1 for e in evals) and evals,
+            f"K1 {k1}, eval batches {evals}")
+    params_m = [float(m) for m in
+                re.findall(r"Params: ([\d.]+)M, Gflops: [\d.]+", "".join(summary))]
+    require(len(summary) == 1 and len(params_m) == 1 and round(params_m[0], 1) == 140.3,
+            f"model summary {summary}")
+    require(len(tb) == 1 and tb_steps and set(logged) <= set(tb_steps),
+            f"TensorBoard: {len(tb)} files, scalar steps {tb_steps}, logged {logged}")
+    require(math.isfinite(info["best_ap"]), "AP finite")
+    return k1
 
 
 MOSAIC_POOL = 2  # partner-pool rows of the event_mosaic phase
@@ -993,9 +1452,10 @@ def event_mosaic_phase(dev):
 TRAINER_EPOCHS, TRAINER_BOXES = 2, 16
 
 
-def _trainer_fixture(root, val_boxes: int = TRAINER_BOXES, train: bool = True):
+def _trainer_fixture(root, val_boxes: int = TRAINER_BOXES, train: bool = True,
+                     train_boxes: int = TRAINER_BOXES):
     """Synthetic Gen1 splits from the port's writer: training 2 recordings x
-    16 boxes (unless ``train`` is false), validation 1 x ``val_boxes``,
+    ``train_boxes`` boxes (unless ``train`` is false), validation 1 x ``val_boxes``,
     200,000 events a recording for each 16 boxes; Blosc-ZSTD chunks when
     this process can encode them and has h5py. Without h5py the splits stay
     unfiltered, as in the runs before ``events/h5lite.py`` wrote chunks, so
@@ -1007,7 +1467,7 @@ def _trainer_fixture(root, val_boxes: int = TRAINER_BOXES, train: bool = True):
     hdf5 = "h5lite" if blosc_codec.h5py is h5lite else "h5py"
     blosc = blosc_codec.available() and hdf5 == "h5py"
     t0 = time.perf_counter()
-    splits = [("training.h5", 2, 1, TRAINER_BOXES)] if train else []
+    splits = [("training.h5", 2, 1, train_boxes)] if train else []
     for split, files, seed, boxes in splits + [("validation.h5", 1, 2, val_boxes)]:
         write_gen1_fixture(root / split, num_files=files, boxes_per_file=boxes,
                            events_per_file=200_000 * boxes // TRAINER_BOXES, seed=seed,
@@ -2999,6 +3459,20 @@ def gen4_phase(dev, cnt_cols):
     return k1_path, k3_path, entry
 
 
+def env_phase():
+    """Which optional packages import on this machine (a report only: no
+    phase depends on it)."""
+    import importlib
+
+    found = {}
+    for name in ("cv2", "matplotlib", "tensorboard", "wandb"):
+        try:
+            found[name] = str(getattr(importlib.import_module(name), "__version__", "unknown"))
+        except Exception:  # absent, or present and broken: not importable either way
+            found[name] = None
+    say("env", **found, python=sys.version.split()[0])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a CUDA card",
@@ -3018,6 +3492,7 @@ def main() -> int:
     from event_representation_study_tpu_torch.utils.config import load_config
 
     dev = torch.device("cuda")
+    env_phase()
     say("device", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
     torch.backends.cudnn.allow_tf32 = False
@@ -3146,9 +3621,18 @@ def main() -> int:
     del k3_args
     warp_phase(dev)
     train_reference(dev)
+    # K steps a call (both EMA cadences) and the bf16 step through K3's bf16
+    # instantiation
+    f32_state, ms_batches, f32_loss, multi_launches = multi_step_phase(dev)
+    bf16_launches, k3_bf16_args = bf16_train_phase(dev, f32_state, ms_batches, f32_loss)
+    del f32_state, ms_batches
+    k3_bf16 = check_k3(k3_bf16_args, "kernel_K3_bf16")
+    del k3_bf16_args
+    bf16_reference(dev)
     # 11-12. event-space augmentation, and training through the CLIs
     mosaic_launches = event_mosaic_phase(dev)
     trainer_launches = trainer_phase(dev)
+    multi_trainer_k1 = multi_step_trainer_phase(dev)
     # 13-14. the representation library and the GWD ranking
     flush = torch.empty(256 * 2**20 // 4, device=dev)
     rep_launches, rep_kernels = representations_phase(dev, flush)
@@ -3185,7 +3669,10 @@ def main() -> int:
                               "search": search_launches[fs.K1],
                               "gen1_published_format": published_launches,
                               "classify": classify_launches, "zoo": zoo_k1,
-                              "zoo_half": half_k1, **variant_k1, "gen4": gen4_k1}
+                              "zoo_half": half_k1, **variant_k1, "gen4": gen4_k1,
+                              "multi_step": sum(n.get(fs.K1, 0) for n in multi_launches.values()),
+                              "multi_step_trainer": multi_trainer_k1,
+                              "bf16_train": bf16_launches[fs.K1]}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
                               "search": search_launches[fs.K2]}
@@ -3209,17 +3696,24 @@ def main() -> int:
                     **{k: e[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                          "max_abs_err")}, "launches": n}
         entry["max_abs_err"] = max(v["max_abs_err"] for v in entry["by_shape"].values())
+    multi_k3 = sum(n.get("roll_rows", 0) for n in multi_launches.values())
     k3["launches_by_path"] = {"train": train_launches["roll_rows"],
                               "zoo": sum(r["launches"] for r in zoo_rolls.values()),
-                              **variant_k3, "gen4": gen4_k3}
+                              **variant_k3, "gen4": gen4_k3, "multi_step": multi_k3,
+                              "bf16_train": bf16_launches["roll_rows"]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     # the main figures stay those of the paper step (640²); each other shape
     # of the zoo's steps beside them, held in zoo_phase
     k3["by_shape"] = {"train_640": {
         **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "max_abs_err")},
-        "launches": train_launches["roll_rows"] + zoo_rolls.get(train_rolls, {}).get(
-            "launches", 0)}}
+        "launches": train_launches["roll_rows"] + multi_k3 + zoo_rolls.get(
+            train_rolls, {}).get("launches", 0)},
+        # the bf16 step's rolls: the same shapes, 2-byte elements
+        "train_640_bf16": {
+            **{k: k3_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                       "max_abs_err", "per_launch")},
+            "launches": bf16_launches["roll_rows"]}}
     for r in zoo_rolls.values():
         if r["check"] is not None:
             k3["by_shape"][f"{r['config']}_{r['img']}"] = {

@@ -11,9 +11,11 @@ default; it raises without CUDA) or ``--device cpu``. The training
 variants of tools/train.py:140-161: ``--fuse-ab``, ``--distill`` (with
 ``--distill-feat``, ``--temperature``, ``--teacher-ckpt``), and
 ``--quant --calib`` (PTQ calibration instead of training; ``--calib``
-alone refuses). Flags of paths that are not ported
-(``--steps-per-dispatch`` > 1, ``--plot-images``) reach the Trainer, which
-raises naming their ROADMAP item.
+alone refuses). ``--steps-per-dispatch K`` trains K steps a call, with the
+EMA blended every step or, with ``--ema-cadence dispatch``, once a call.
+``--override use_tensorboard=True`` / ``use_wandb=True`` add the
+TensorBoard and wandb writers. ``--plot-images`` reaches the Trainer, which
+raises naming its ROADMAP item (the plots are not ported).
 """
 from __future__ import annotations
 
@@ -55,9 +57,12 @@ def get_args_parser():
     p.add_argument("--stop-aug-last-n-epoch", type=int, default=15,
                    help="zero mosaic/mixup for the last N epochs (engine.py:475-480)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="train K steps per dispatch (not ported: ROADMAP M7)")
+                   help="train K steps per call on K stacked batches; the "
+                        "remainder of an epoch goes through the per-batch step")
     p.add_argument("--ema-cadence", choices=("step", "dispatch"), default="step",
-                   help="with --steps-per-dispatch > 1 (not ported: ROADMAP M7)")
+                   help="with --steps-per-dispatch > 1: blend the EMA every "
+                        "step, or once per call with the product of the K "
+                        "decays (the counter advances by K)")
     p.add_argument("--partner-pool", type=int, default=0,
                    help="with --augment: extra dataset-wide samples per batch "
                         "as mosaic/mixup partners; 0 = in-batch partners")

@@ -30,6 +30,17 @@ here :class:`TrainState` carries the ``nn.Module`` (parameters and BatchNorm
 statistics), the optimizer with its state, the EMA and the step count, and
 the step updates them in place: a 140M-parameter model is not copied per
 step. The step draws no random numbers: the plan arrives with the batch.
+
+A bfloat16 model (``Detector(dtype=torch.bfloat16)``: autocast over float32
+weights) trains as the JAX package's bf16 step does: the warp gathers its
+source in bf16 (the separable warp's two rolls run K3's bf16
+instantiation), and the detector's outputs are widened to float32 before
+the assigners and the loss. Weights, gradients and the optimizer stay
+float32.
+
+:func:`make_multi_train_step` runs K steps a call on a batch stacked by
+:func:`stack_batches` (the JAX package's ``lax.scan`` dispatch), with the
+EMA blended every step or once a call.
 """
 from __future__ import annotations
 
@@ -48,7 +59,7 @@ from ..ops.image import letterbox_image
 from ..ops.warp import AugPlan, compose_warp, compose_warp_separable
 from ..reps.dispatch import batched_representation
 from ..reps.event_mosaic import mosaic_event_rep, supports_event_mosaic
-from ..train.ema import EMAState, ema_init, ema_update
+from ..train.ema import EMAState, ema_init, ema_update, ema_update_k
 from ..train.losses import LossConfig, detection_loss
 from ..train.losses_variants import detection_loss_distill, detection_loss_fuseab
 
@@ -95,6 +106,50 @@ def batch_on_device(batch: Batch, device) -> Batch:
 LEARNED = "LearnedRepresentation"
 
 
+def _map_batch(fn, *batches: Batch) -> Batch:
+    """``fn`` over the same leaf of each of ``batches`` (a field that is
+    None stays None)."""
+    out = []
+    for vals in zip(*batches):
+        v0 = vals[0]
+        if v0 is None:
+            out.append(None)
+        elif isinstance(v0, EventBlock):
+            out.append(EventBlock(**{f.name: fn(*(getattr(v, f.name) for v in vals))
+                                     for f in dataclasses.fields(v0)}))
+        elif isinstance(v0, AugPlan):
+            out.append(AugPlan(*(None if a is None else fn(*(v[j] for v in vals))
+                                 for j, a in enumerate(v0))))
+        else:
+            out.append(fn(*vals))
+    return Batch(*out)
+
+
+def stack_batches(batches) -> Batch:
+    """Batches of one shape stacked along a new leading K axis, every leaf
+    (event-block and plan fields included): NumPy leaves (the loader's) stay
+    NumPy, tensors become a tensor. :func:`make_multi_train_step` moves the
+    stack to the device in one go."""
+    def stack(*xs):
+        if all(torch.is_tensor(x) for x in xs):
+            return torch.stack(xs)
+        return np.stack([np.asarray(x) for x in xs])
+
+    return _map_batch(stack, *batches)
+
+
+def _bf16(model: nn.Module) -> bool:
+    return getattr(model, "dtype", torch.float32) == torch.bfloat16
+
+
+def _float32(outputs):
+    """A nested tuple/list of outputs with every bf16 tensor widened to
+    float32 (float32 and float64 ones as they are)."""
+    if isinstance(outputs, (list, tuple)):
+        return type(outputs)(_float32(o) for o in outputs)
+    return outputs.float() if outputs.dtype == torch.bfloat16 else outputs
+
+
 def _check_modes(mode: str, aug_mode: str, representation: Optional[str]) -> None:
     if mode not in ("plain", "fuseab", "distill"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -127,7 +182,8 @@ def make_train_step(
     ``parts`` holds the loss and its weighted terms as 0-d tensors.
     ``mode``, ``teacher`` (the distillation teacher, a model on ``device``
     with its weights), ``max_epoch``, ``temperature`` and ``distill_feat``
-    as the module docstring says.
+    as the module docstring says. A bfloat16 model in the state takes the
+    bf16 step (module docstring).
 
     The returned function also carries the stages it composes
     (``rep_fn``, ``warp``, ``images_of``, ``loss_fn``, ``apply_update``),
@@ -145,17 +201,18 @@ def make_train_step(
     warp = compose_warp_separable if warp_impl == "separable" else compose_warp
 
     @torch.no_grad()
-    def images_of(batch: Batch):
+    def images_of(batch: Batch, gather_dtype: Optional[torch.dtype] = None):
         """(B, C, S, S) model input on the 0..1 scale (an NCHW view of an
-        NHWC tensor); nothing upstream of the detector needs a gradient.
-        With the learned representation, the raw events."""
+        NHWC tensor), the warp's source gathered in ``gather_dtype``;
+        nothing upstream of the detector needs a gradient. With the learned
+        representation, the raw events."""
         if learned:
             return batch.events
         n_out = batch.gt_labels.shape[0]
         if batch.images is not None:
             img = batch.images
             if batch.aug is not None:
-                img = warp(img, batch.aug, img_size)[:n_out] / 255.0
+                img = warp(img, batch.aug, img_size, gather_dtype=gather_dtype)[:n_out] / 255.0
         elif batch.aug is not None and aug_mode == "event":
             img = mosaic_event_rep(batch.events, batch.aug, representation, (H, W),
                                    img_size)[:n_out] / 255.0
@@ -164,12 +221,13 @@ def make_train_step(
             if batch.aug is not None:
                 # every pool row is composed (mixup partners need their own
                 # composed output); only the labelled rows are emitted
-                img = warp(img, batch.aug, img_size)[:n_out]
+                img = warp(img, batch.aug, img_size, gather_dtype=gather_dtype)[:n_out]
             img = img / 255.0
         return img.permute(0, 3, 1, 2)
 
     def loss_fn(model: nn.Module, imgs, batch: Batch, epoch: int):
-        outputs = model(imgs)
+        # a bf16 model's outputs reach the assigners and the loss in float32
+        outputs = _float32(model(imgs))
         feats = outputs[0]
         feat_shapes = [tuple(f.shape[2:]) for f in feats]
         gt = (batch.gt_labels, batch.gt_bboxes, batch.gt_mask)
@@ -183,7 +241,7 @@ def make_train_step(
             # a distill_ns head adds the ltrb branch: (feats, cls, reg_lrtb, reg_dist)
             ns = len(outputs) == 4
             with torch.no_grad(), _batch_stats_frozen(teacher.train()):
-                t_out = teacher(imgs)
+                t_out = _float32(teacher(imgs))
             return detection_loss_distill(
                 (feats, outputs[1], outputs[-1]), (t_out[0], t_out[-2], t_out[-1]), *gt,
                 feat_shapes, epoch, max_epoch,
@@ -204,11 +262,9 @@ def make_train_step(
         return state
 
     def train_step(state: TrainState, batch: Batch, epoch: int):
-        if getattr(state.model, "dtype", torch.float32) != torch.float32:
-            raise NotImplementedError(
-                "a bfloat16 train step is not ported (ROADMAP M20: K3 in bf16)")
         batch = batch_on_device(batch, device)
-        imgs = images_of(batch)
+        # a bf16 model: the warp's source in bf16 (JAX: _warp_gd)
+        imgs = images_of(batch, torch.bfloat16 if _bf16(state.model) else None)
         model = state.model.train()
         model.zero_grad(set_to_none=True)
         loss, parts = loss_fn(model, imgs, batch, epoch)
@@ -218,12 +274,53 @@ def make_train_step(
         parts["loss"] = loss.detach()
         return state, parts
 
+    train_step.device = device
     train_step.rep_fn = rep_fn
     train_step.warp = warp
     train_step.images_of = images_of
     train_step.loss_fn = loss_fn
     train_step.apply_update = apply_update
     return train_step
+
+
+def make_multi_train_step(loss_cfg: LossConfig, k: int, ema_cadence: str = "step", **kwargs):
+    """K train steps a call (the JAX package's ``make_multi_train_step``;
+    there one ``lax.scan`` dispatch). ``kwargs`` are
+    :func:`make_train_step`'s (``mode``, ``teacher``, ``device`` ...); the
+    model and the optimizer travel in the state, as for
+    :func:`make_train_step`.
+
+    ``multi_step(state, stacked, epoch) -> (state, parts)``: ``stacked`` is
+    :func:`stack_batches` of K batches, moved to the step's device once;
+    the K per-batch steps run in order on it, and each value of ``parts``
+    is a (K,) tensor on the device. Nothing is read back to the host.
+    ``ema_cadence="step"`` blends the EMA in every step; ``"dispatch"``
+    blends it once at the end with :func:`..train.ema.ema_update_k` (the
+    product of the K decays; the counter advances by K)."""
+    if ema_cadence not in ("step", "dispatch"):
+        raise ValueError(f"unknown ema_cadence {ema_cadence!r}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    step = make_train_step(loss_cfg, update_ema=ema_cadence == "step", **kwargs)
+
+    def leading_k(a):
+        if a.shape[0] != k:
+            raise ValueError(f"stacked batch has leading dim {a.shape[0]}, "
+                             f"expected steps_per_dispatch={k}")
+        return a
+
+    def multi_step(state: TrainState, stacked: Batch, epoch: int):
+        stacked = batch_on_device(_map_batch(leading_k, stacked), step.device)
+        parts = []
+        for i in range(k):
+            state, p = step(state, _map_batch(lambda a: a[i], stacked), epoch)
+            parts.append(p)
+        if ema_cadence == "dispatch":
+            state.ema = ema_update_k(state.ema, state.model, k)
+        return state, {key: torch.stack([p[key] for p in parts]) for key in parts[0]}
+
+    multi_step.step = step
+    return multi_step
 
 
 @contextlib.contextmanager

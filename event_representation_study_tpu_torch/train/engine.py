@@ -15,6 +15,16 @@ loss), ``distill`` (a frozen teacher of the same config, loaded from
 nano/small models, ``model.type`` YOLOv6n/s, take the distill_ns head),
 ``quant_calib`` (:meth:`Trainer.calibrate`: PTQ instead of training) and the
 learned representation (raw events into the detector; flips only).
+
+With ``steps_per_dispatch`` K > 1 an epoch groups K loader batches, stacks
+them and trains each group in one K-step call (the JAX Trainer's
+``lax.scan`` dispatch; ``parallel/train_step.py::make_multi_train_step``),
+with the EMA blended every step (``ema_cadence="step"``) or once a call
+(``"dispatch"``); the fewer than K batches left at the end of an epoch go
+through the per-batch step, which blends the EMA itself. Metrics go to
+``metrics.jsonl`` and, with the config's ``use_tensorboard`` /
+``use_wandb``, to TensorBoard event files and a wandb run
+(``utils/observability.py``).
 """
 from __future__ import annotations
 
@@ -30,11 +40,18 @@ from ..data.loader import EventBatchLoader
 from ..models import build_model
 from ..models.yolo import init_weights_
 from ..ops.warp import separable_hyp_eligible
-from ..parallel.train_step import LEARNED, init_train_state, make_train_step
+from ..parallel.train_step import (
+    LEARNED,
+    init_train_state,
+    make_multi_train_step,
+    make_train_step,
+    stack_batches,
+)
 from ..reps.dispatch import REPRESENTATION_CHANNELS
 from ..reps.event_mosaic import supports_event_mosaic
 from ..utils.logging import get_logger
 from ..utils.observability import MultiWriter
+from ..utils.profiling import get_model_info
 from .checkpoint import (
     load_model_variables,
     load_teacher_variables,
@@ -49,8 +66,7 @@ LOGGER = get_logger("engine")
 
 
 def _unported(data_type: str, representation: Optional[str], fuse_ab: bool, distill: bool,
-              augment: bool, steps_per_dispatch: int, ema_cadence: str,
-              plot_images: bool) -> None:
+              augment: bool, plot_images: bool) -> None:
     if distill and fuse_ab:
         # engine.py:78-80: "Distill models should turn off the fuse_ab"
         raise ValueError("distill and fuse_ab are mutually exclusive")
@@ -59,8 +75,6 @@ def _unported(data_type: str, representation: Optional[str], fuse_ab: bool, dist
                          "representation consumes raw events (use flips only)")
     if data_type == "images":
         raise NotImplementedError("image-folder datasets are not ported (ROADMAP M19)")
-    if steps_per_dispatch > 1 or ema_cadence != "step":
-        raise NotImplementedError("multi-step dispatch is not ported (ROADMAP M7)")
     if plot_images:
         raise NotImplementedError("train/val plots are not ported (ROADMAP M19, utils/viz)")
 
@@ -101,8 +115,7 @@ class Trainer:
         data = cfg.get("data", {})
         self.data_type = data.get("type", "gen1")
         self.representation = data.get("representation", "OptimizedRepresentation")
-        _unported(self.data_type, self.representation, fuse_ab, distill, augment,
-                  int(steps_per_dispatch), ema_cadence, plot_images)
+        _unported(self.data_type, self.representation, fuse_ab, distill, augment, plot_images)
         self.learned = self.representation == LEARNED
         self.quant_calib = quant_calib
         self.device = resolve_device(device)
@@ -202,24 +215,38 @@ class Trainer:
                               torch.Generator(device=self.device).manual_seed(seed + 1))
             self.teacher.requires_grad_(False)
         self.train_mode = "distill" if distill else "fuseab" if fuse_ab else "plain"
-        self.train_step = make_train_step(
-            self.loss_cfg, self.representation, rep_hw=(self.train_ds.height, self.train_ds.width),
-            img_size=img_size, mode=self.train_mode, aug_mode=aug_mode, warp_impl=warp_impl,
-            device=self.device, teacher=self.teacher, max_epoch=epochs,
-            temperature=temperature, distill_feat=distill_feat,
+        step_kwargs = dict(
+            representation=self.representation,
+            rep_hw=(self.train_ds.height, self.train_ds.width), img_size=img_size,
+            mode=self.train_mode, aug_mode=aug_mode, warp_impl=warp_impl, device=self.device,
+            teacher=self.teacher, max_epoch=epochs, temperature=temperature,
+            distill_feat=distill_feat,
         )
+        self.train_step = make_train_step(self.loss_cfg, **step_kwargs)
+        # K steps a call; 1 = the per-batch step alone
+        self.steps_per_dispatch = max(1, int(steps_per_dispatch))
+        if self.steps_per_dispatch > 1:
+            self.multi_step = make_multi_train_step(
+                self.loss_cfg, self.steps_per_dispatch, ema_cadence=ema_cadence, **step_kwargs)
         tx = with_accumulation(build_optimizer(self.model, self.solver_cfg), self.accumulate,
                                warmup_steps=self.accum_warmup_steps)
         self.state = init_train_state(self.model, tx)
-        n_params = sum(p.numel() for p in self.model.parameters())
-        LOGGER.info("Model Summary: Params: %.2fM", n_params / 1e6)
+        # the reference's thop model_info line; the learned representation
+        # takes event blocks, where the image probe does not apply
+        if self.learned:
+            n_params = sum(p.numel() for p in self.model.parameters())
+            LOGGER.info("Model Summary: Params: %.2fM", n_params / 1e6)
+        else:
+            LOGGER.info("Model Summary: %s",
+                        get_model_info(self.model, img_size=img_size, channels=channels))
 
         self.evaler = Evaler(self.model, self.val_loader, nc, self.representation, img_size,
                              device=self.device)
         self.best_ap = -1.0
         self.start_epoch = 0
         self.writer = MultiWriter.default(
-            self.output_dir, use_wandb=bool(cfg.get("use_wandb")),
+            self.output_dir, config={"representation": self.representation},
+            use_wandb=bool(cfg.get("use_wandb")),
             use_tensorboard=bool(cfg.get("use_tensorboard")),
         )
         self.log_interval = 200  # loss every 200 steps (engine.py:264-265)
@@ -283,13 +310,10 @@ class Trainer:
         for epoch in range(self.start_epoch, self.epochs):
             self.prepare_for_epoch(epoch)
             t0 = time.time()
-            parts = None
-            for batch, _ in self.train_loader:
-                self.state, parts = self.train_step(self.state, batch, epoch)
-                # the host-side step count: reading a device value here
-                # would wait for every step
-                if self.state.step % self.log_interval == 0:
-                    self.writer.log({k: float(v) for k, v in parts.items()}, self.state.step)
+            if self.steps_per_dispatch > 1:
+                parts = self._train_epoch_scanned(epoch)
+            else:
+                parts = self._train_epoch(epoch)
             if parts is not None:
                 last = {k: float(v) for k, v in parts.items()}
                 LOGGER.info(
@@ -300,6 +324,37 @@ class Trainer:
             if self.should_eval(epoch):
                 stats = self.eval_and_save(epoch)
                 LOGGER.info("epoch %d eval: %s", epoch, stats)
+
+    def _train_epoch(self, epoch: int):
+        """The per-batch epoch; returns the last step's parts."""
+        parts = None
+        for batch, _ in self.train_loader:
+            self.state, parts = self.train_step(self.state, batch, epoch)
+            # the host-side step count: reading a device value here would
+            # wait for every step
+            if self.state.step % self.log_interval == 0:
+                self.writer.log({k: float(v) for k, v in parts.items()}, self.state.step)
+        return parts
+
+    def _train_epoch_scanned(self, epoch: int):
+        """The K-steps-a-call epoch: K loader batches stacked into one
+        ``multi_step`` call; the remainder (< K batches) through the
+        per-batch step, which logs only through the returned parts, as in
+        the JAX Trainer. Returns the last step's parts."""
+        k = self.steps_per_dispatch
+        group, parts = [], None
+        for batch, _ in self.train_loader:
+            group.append(batch)
+            if len(group) < k:
+                continue
+            self.state, stacked_parts = self.multi_step(self.state, stack_batches(group), epoch)
+            group = []
+            parts = {key: v[-1] for key, v in stacked_parts.items()}
+            if self.state.step % self.log_interval < k:  # the call crossed a log step
+                self.writer.log({key: float(v) for key, v in parts.items()}, self.state.step)
+        for batch in group:
+            self.state, parts = self.train_step(self.state, batch, epoch)
+        return parts
 
     def eval_and_save(self, epoch: int) -> Dict[str, float]:
         stats = self.evaler.run(self.state.ema.variables)

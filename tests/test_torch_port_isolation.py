@@ -18,8 +18,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
 # the representation library, the GWD ranking, the channel search, the
 # event windows, the N-ImageNet classification, the detector zoo, the
-# training variants and deploy tools, and the 1 Mpx data with the event-file
-# tools, imported in the probe too
+# training variants and deploy tools, the 1 Mpx data with the event-file
+# tools, and the metrics writers' and utilities' own copies, imported in the
+# probe too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
@@ -32,7 +33,7 @@ NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_s
                "train.losses_variants", "train.rep_optimizer", "utils.quantize",
                "utils.export", "events.prophesee", "events.filters", "events.rosbag",
                "data.gen4", "data.gen4_legacy", "cli.consolidate", "cli.convert",
-               "cli.precompute_reps")
+               "cli.precompute_reps", "utils.tb_native", "utils.profiling", "utils.tasks")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -130,16 +131,13 @@ def test_eval_half_defaults_to_cuda(no_cuda, tmp_path):
 
 
 def test_bf16_train_step_is_refused():
-    """A bf16 model's train step waits for a bf16 K3 (ROADMAP M20)."""
-    from event_representation_study_tpu_torch.models import build_model
-    from event_representation_study_tpu_torch.parallel.train_step import TrainState
-    from event_representation_study_tpu_torch.utils.config import load_config
-
-    cfg = load_config(REPO / "configs/gen1_optimized.py",
-                      overrides=["model.depth_multiple=0.2", "model.width_multiple=0.125"])
-    model = build_model(cfg, 2, device="cpu", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="M20"):
-        _train_step()(TrainState(model, None, None), None, 0)
+    """A bf16 model's train step, refused until K3 ran in bf16 on a train
+    step (ROADMAP M20), now runs: float32 weights and gradients, finite
+    loss parts."""
+    state, parts = _bf16_step_runs()
+    assert all(bool(torch.isfinite(v)) for v in parts.values())
+    assert state.step == 1
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in state.model.parameters())
 
 
 @pytest.mark.parametrize("metric", ["otmi", "gw_distance"])
@@ -234,26 +232,71 @@ def _images_trainer(tmp):
     return Trainer(cfg, tmp, device="cpu")
 
 
-def _bf16_step(tmp):
-    from event_representation_study_tpu_torch.parallel.train_step import TrainState
+SMALL = ["model.depth_multiple=0.2", "model.width_multiple=0.125"]
 
-    return _train_step()(TrainState(_build(dtype=torch.bfloat16), None, None), None, 0)
+
+def _bf16_step_runs(tmp=None):
+    """One bf16 step of the shrunk detector on 64 px images with a
+    strong-augmentation plan (the exact warp gathers its source in bf16)."""
+    from event_representation_study_tpu_torch.data.augment import plan_augment_batch
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.ops.warp import AugPlan
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        Batch, init_train_state)
+    from event_representation_study_tpu_torch.train.optim import SolverConfig, build_optimizer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    cfg = load_config(REPO / "configs/gen1_optimized.py", overrides=SMALL)
+    model = build_model(cfg, 2, device="cpu", dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0))
+    state = init_train_state(model, build_optimizer(model, SolverConfig()))
+    rng = np.random.default_rng(2)
+    labels = [np.array([[i % 2, 8.0, 10.0, 40.0, 44.0]], np.float32) for i in range(4)]
+    plan, lab, nl = plan_augment_batch(labels, 64, dict(cfg["data_aug"], mixup=1.0), rng, 8)
+    batch = Batch(rng.uniform(0, 255, (4, 64, 64, 12)).astype(np.float32), None, lab[..., 0],
+                  lab[..., 1:5], (np.arange(8)[None] < nl[:, None]).astype(np.float32),
+                  AugPlan(**plan))
+    return _train_step(representation=None, img_size=64, warp_impl="exact")(state, batch, 0)
+
+
+def _k_step_trainer_runs(tmp):
+    """A shrunk Trainer at K = 2 with the once-a-call EMA, one epoch of 3
+    batches (a K-step call and a remainder step)."""
+    from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
+    from event_representation_study_tpu_torch.train.engine import Trainer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    for split, boxes in (("training.h5", 6), ("validation.h5", 2)):
+        write_gen1_fixture(tmp / split, num_files=1, boxes_per_file=boxes,
+                           events_per_file=3000, seed=boxes)
+    tr = Trainer(load_config(REPO / "configs/gen1_optimized.py", overrides=SMALL), tmp,
+                 batch_size=2, epochs=1, img_size=64, num_events=512, output_dir=tmp / "out",
+                 steps_per_dispatch=2, ema_cadence="dispatch", device="cpu")
+    tr.train()
+    assert (tr.state.step, tr.state.ema.updates) == (3, 3)
+    return tr
 
 
 @pytest.mark.parametrize(
     "call,item",
     [
         (lambda tmp: _trainer(tmp, plot_images=True), "M19"),
-        (_bf16_step, "M20"),
+        (_bf16_step_runs, None),
         (_images_trainer, "M19"),
-        (lambda tmp: _trainer(tmp, steps_per_dispatch=2), "M7"),
+        (_k_step_trainer_runs, None),
     ],
     # ids of paths since ported keep their names: "train_ptq" for a bf16
-    # train step (M20), "backbone" for an image-folder dataset (M19),
-    # "train_event_aug" for multi-step dispatch (M7)
+    # train step (M20; ported, it runs), "backbone" for an image-folder
+    # dataset (M19), "train_event_aug" for multi-step dispatch (M7; ported,
+    # it runs)
     ids=["train_plots", "train_ptq", "backbone", "train_event_aug"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
+    """An unported path raises naming its ROADMAP item; a path since ported
+    (item None) builds and runs."""
+    if item is None:
+        assert call(tmp_path) is not None
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(tmp_path)
 
