@@ -188,6 +188,28 @@ Phases, one printed line each:
    an eval batch, AP finite); ``cli/precompute_reps.py --limit 8`` (K1
    once), two samples against the CPU; ``kernel_K1_gen4``: K1 at B 8, N
    70,000, S 921,600 against its plain version, timed beside its bound.
+26. images: original-image data. A synthetic image folder written with cv2
+   (images/{train,val}, labels/{train,val}: 56 + 8 RGB frames of sizes
+   drawn around 240x304, one box each, one background-only frame a
+   split); the full-width paper detector at 3 channels
+   (``data.type=images``) takes a warm-up and 3 ATSS + 3 TAL steps on
+   batches of 8 from ``ImageBatchLoader`` with the config's recipe, the
+   separable warp of the 0..255 RGB tiles on K3 (twice a step, K1 never),
+   its stages timed (``images_stages_ms``) and the loader's host ms a
+   batch; ``cli/train.py --override data.type=images --augment`` for an
+   epoch and its COCO evaluation (AP finite, ``last_ckpt``;
+   ``images_trainer``); ``cli/infer.py --source`` on a PNG and on an MJPG
+   ``.avi`` with that checkpoint, ``--save-dir`` and ``--max-frames 2``
+   (frames counted, files read back; ``images_demo``); ``--save-img`` on a
+   Gen1 event file (K1 once; ``images_save_img``); a reference-style state
+   dict of ``configs/swinv2_yolov6l6_finetune.py`` in half precision
+   imported by ``utils/torch_convert.py`` and served on the card against
+   the CPU (boxes 1e-2 px; ``images_torch_convert``); ``cli/train.py
+   --plot-images`` on small Gen1 splits (both mosaics written, or an
+   ImportError naming matplotlib where it is absent; ``images_plots``);
+   kernel_K3_images: K3 at the RGB step's captured shapes (the 4-byte
+   vector branch) against its plain version, timed beside its bound and
+   ``torch.gather``.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -812,9 +834,9 @@ def check_k3(k3_args, label: str = "kernel_K3"):
         }
         del out, idx, s
     # every vector width of the kernel: 16 B (f32 C=12), 8 B (bf16 C=12),
-    # 4 B (f32 C=5), 2 B (bf16 C=5)
+    # 4 B (f32 C=5, and the RGB images' f32 C=3), 2 B (bf16 C=5, bf16 C=3)
     for dtype in (torch.float32, torch.bfloat16):
-        for c in (12, 5):
+        for c in (12, 5, 3):
             xs = torch.randn((2, 37, 101, c), generator=gen, device=dev).to(dtype)
             ss = torch.randint(-9, 80, (2, 37), generator=gen, device=dev, dtype=torch.int32)
             checks[f"width.{dtype}.C{c}"] = torch.equal(roll.roll_rows(xs, ss, 40),
@@ -3459,6 +3481,343 @@ def gen4_phase(dev, cnt_cols):
     return k1_path, k3_path, entry
 
 
+IMAGES_TRAIN, IMAGES_VAL = 7 * B, B  # the folder: 7 train batches of B, one val batch
+IMAGES_HW = ((220, 261), (280, 331))  # frame heights and widths drawn around 240x304
+DEMO_FRAMES = 3  # frames of the written video; --max-frames 2 serves 2
+
+
+def image_batches(root, n_batches: int, hyp, img: int = IMG):
+    """The first ``n_batches`` train batches of the port's ImageBatchLoader
+    over ``root`` (the config's recipe with ``hyp``), each with its host
+    assembly ms."""
+    from event_representation_study_tpu_torch.data.image_dataset import (
+        ImageBatchLoader, ImageFolderDataset)
+
+    loader = ImageBatchLoader(ImageFolderDataset(root, task="train", img_size=img), B,
+                              img_size=img, shuffle=True, seed=0, hyp=hyp)
+    out, ms = [], []
+    indices = loader._indices()
+    for b in range(n_batches):
+        t = time.perf_counter()
+        out.append(loader._make_batch(indices[b * B:(b + 1) * B])[0])
+        ms.append((time.perf_counter() - t) * 1e3)
+    return out, ms
+
+
+def image_step_stages(state, step, batches, dev):
+    """Where an image step's device time goes, stage by stage (ms from CUDA
+    events) on the first 3 batches: the host-to-device copy of the tiles,
+    the separable warp (K3), forward + loss, backward, optimizer + EMA."""
+    from event_representation_study_tpu_torch.parallel.train_step import batch_on_device
+
+    stages = {k: [] for k in ("h2d", "warp", "forward_loss", "backward", "optimizer_ema")}
+    for j in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        ev[0].record()
+        batch = batch_on_device(batches[j], dev)
+        ev[1].record()
+        imgs = step.images_of(batch)
+        ev[2].record()
+        state.model.zero_grad(set_to_none=True)
+        loss, _ = step.loss_fn(state.model, imgs, batch, 5)
+        ev[3].record()
+        loss.backward()
+        ev[4].record()
+        step.apply_update(state)
+        ev[5].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(stages, zip(ev, ev[1:])):
+            stages[k].append(a.elapsed_time(b))
+    return stages
+
+
+def images_phase(dev):
+    """Original-image data on the card: a synthetic image folder written
+    with cv2; the full-width paper detector at 3 channels trained on it
+    (warm-up + 3 ATSS + 3 TAL steps, the separable warp of the RGB tiles on
+    K3); ``cli/train.py --override data.type=images`` for an epoch and its
+    COCO evaluation; ``cli/infer.py --source`` on a PNG and an MJPG video
+    with the trained checkpoint; ``--save-img`` on a Gen1 event file (K1);
+    a reference-style state dict of ``configs/swinv2_yolov6l6_finetune.py``
+    imported by ``utils/torch_convert.py`` and served on the card against
+    the CPU; ``--plot-images``. Returns (the K3 arguments of the warm-up
+    step, launches by path)."""
+    import pathlib
+    import tempfile
+
+    import cv2
+
+    from event_representation_study_tpu_torch.cli import infer as infer_cli
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.data.image_dataset import write_image_folder
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.parallel.train_step import (
+        init_train_state, make_train_step)
+    from event_representation_study_tpu_torch.train.optim import (
+        accumulation_steps, build_optimizer, with_accumulation)
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        boxes = write_image_folder(tmp / "folder", n=IMAGES_TRAIN, seed=0, h_range=IMAGES_HW[0],
+                                   w_range=IMAGES_HW[1], tasks=("train",))
+        boxes.update(write_image_folder(tmp / "folder", n=IMAGES_VAL, seed=1,
+                                        h_range=IMAGES_HW[0], w_range=IMAGES_HW[1],
+                                        tasks=("val",)))
+        folder_s = time.perf_counter() - t0
+        sizes = sorted({(h, w) for h, w, *_ in boxes.values()})
+
+        # the full-width step on the folder's batches
+        cfg = load_config("configs/gen1_optimized.py", overrides=["data.type=images"])
+        hyp = dict(cfg["data_aug"])
+        n_steps = sum(TRAIN_STEPS.values())
+        batches, loader_ms = image_batches(tmp / "folder", n_steps + 1, hyp)
+        t0 = time.perf_counter()
+        model = build_model(cfg, cfg["data"]["num_classes"], num_channels=3, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(5))
+        randomize_preds_(model, torch.Generator(device=dev).manual_seed(6), which="reg_pred")
+        sgd = build_optimizer(model, solver_config(cfg))
+        sgd.count = max(round(sgd.cfg.warmup_epochs * sgd.cfg.steps_per_epoch), 1000)
+        state = init_train_state(model, with_accumulation(sgd, accumulation_steps(B, nominal=B)))
+        step = make_train_step(loss_config(cfg), None, (IMG, IMG), IMG, warp_impl="separable",
+                               device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (state, parts), k3_args = capture_roll_inputs(lambda: step(state, batches[0], 0))
+        warm = {k: v.item() for k, v in parts.items()}
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        require(len(k3_args) == 2 and all(a[0].shape[-1] == 3 for a in k3_args),
+                f"the warp rolled {[list(a[0].shape) for a in k3_args]}, not twice at C = 3")
+        state, times, per_step, step_launches, peak = timed_steps(state, step, batches[1:])
+        stages = image_step_stages(state, step, batches, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        del state, model, step
+        torch.cuda.empty_cache()
+        say("images", folder={"frames": IMAGES_TRAIN + IMAGES_VAL, "sizes": len(sizes),
+                              "smallest": sizes[0], "largest": sizes[-1], "write_s": folder_s},
+            batch=B, img=IMG, channels=3, params=n_params, build_s=build_s,
+            loader_make_batch_ms=loader_ms, loader_median_ms=statistics.median(loader_ms),
+            warmup_step_ms=warm_ms, warmup_step=warm, ms_per_step=times,
+            median_ms=statistics.median(times), peak_mem_bytes=peak, steps=per_step,
+            launches=step_launches, roll_shapes=[list(a[0].shape) for a in k3_args],
+            tf32=tf32_state())
+        say("images_stages_ms", epoch=5, tf32=tf32_state(),
+            **{k: statistics.median(v) for k, v in stages.items()}, all_runs=stages)
+        require(step_launches[roll.K3] == 2 * n_steps and step_launches[fs.K1] == 0,
+                f"image steps: launches {step_launches} for {n_steps} steps")
+        require(all(math.isfinite(v) for st in per_step for v in st.values()), "finite losses")
+        require(all(st["num_pos"] > 0 for st in per_step), "every step has positive anchors")
+        launches["step"] = step_launches[roll.K3]
+
+        # the Trainer through cli/train.py, and its evaluation
+        stats = []
+        from event_representation_study_tpu_torch.train import engine
+
+        real_eval = engine.Trainer.eval_and_save
+
+        def eval_and_save(self, epoch):
+            stats.append(real_eval(self, epoch))
+            return stats[-1]
+
+        engine.Trainer.eval_and_save = eval_and_save
+        fs.reset_launches()
+        roll.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            tr = train_cli.main(["--conf", "configs/gen1_optimized.py", "--data-path",
+                                 str(tmp / "folder"), "--override", "data.type=images",
+                                 "--batch-size", str(B), "--img-size", str(IMG), "--epochs", "1",
+                                 "--augment", "--eval-interval", "1",
+                                 "--output-dir", str(tmp / "run")])
+        finally:
+            engine.Trainer.eval_and_save = real_eval
+        trainer_s = time.perf_counter() - t0
+        trainer_launches = {fs.K1: fs.LAUNCHES[fs.K1], roll.K3: roll.LAUNCHES[roll.K3]}
+        info = {"aug_mode": tr.aug_mode, "warp_impl": tr.warp_impl, "steps": tr.state.step,
+                "loader_batches": len(tr.train_loader), "val_batches": len(tr.val_loader),
+                "stem_channels": tr.model.backbone.stem.conv.weight.shape[1]}
+        del tr
+        torch.cuda.empty_cache()
+        ckpt = tmp / "run" / "last_ckpt"
+        say("images_trainer", **info, seconds=trainer_s, launches=trainer_launches,
+            ap=stats[-1]["AP"], ap50=stats[-1]["AP50"],
+            eval_speed_ms_per_image={k: stats[-1][k] for k in (
+                "speed_pre_ms", "speed_infer_nms_ms", "speed_post_ms")},
+            last_ckpt=ckpt.exists())
+        require(info["aug_mode"] == "image" and info["warp_impl"] == "separable"
+                and info["stem_channels"] == 3, f"image Trainer: {info}")
+        require(info["steps"] == info["loader_batches"] == IMAGES_TRAIN // B,
+                f"image Trainer steps {info}")
+        require(trainer_launches[roll.K3] == 2 * info["steps"] and trainer_launches[fs.K1] == 0,
+                f"image Trainer launches {trainer_launches}")
+        require(len(stats) == 1 and math.isfinite(stats[-1]["AP"]) and ckpt.exists(),
+                f"image Trainer eval {stats}, checkpoint {ckpt.exists()}")
+        launches["trainer"] = trainer_launches[roll.K3]
+
+        # the pixel demo with the trained checkpoint: a PNG and an MJPG video
+        frame = np.random.default_rng(3).integers(0, 255, (H, W, 3), np.uint8)
+        require(cv2.imwrite(str(tmp / "demo.png"), frame), "cv2 writes the demo PNG")
+        vw = cv2.VideoWriter(str(tmp / "demo.avi"), cv2.VideoWriter_fourcc(*"MJPG"), 5.0, (W, H))
+        require(vw.isOpened(), "cv2 opens an MJPG video writer")
+        for i in range(DEMO_FRAMES):
+            vw.write(np.ascontiguousarray(np.roll(frame, 17 * i, axis=1)))
+        vw.release()
+        real_run, frame_ms = infer_cli.Server.run, []
+
+        def timed_run(self, x):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_run(self, x)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        infer_cli.Server.run = timed_run
+        demo = {}
+        fs.reset_launches()
+        try:
+            for kind in ("png", "avi"):
+                t0 = time.perf_counter()
+                res = infer_cli.main(["--source", str(tmp / f"demo.{kind}"), "--checkpoint",
+                                      str(ckpt), "--img-size", str(IMG), "--max-frames", "2",
+                                      "--save-dir", str(tmp / f"annotated_{kind}")])
+                written = sorted(p.name for p in (tmp / f"annotated_{kind}").iterdir())
+                demo[kind] = {"frames": len(res), "written": written,
+                              "detections": [len(d) for _, _, d in res],
+                              "shapes": [list(cv2.imread(str(tmp / f"annotated_{kind}" / n)).shape)
+                                         for n in written],
+                              "cli_s": time.perf_counter() - t0}
+        finally:
+            infer_cli.Server.run = real_run
+        say("images_demo", **demo, frame_ms=frame_ms, launches=dict(fs.LAUNCHES),
+            tf32=tf32_state())
+        require(demo["png"]["frames"] == 1 and demo["avi"]["frames"] == 2,
+                f"demo frames {demo}")
+        require(demo["png"]["written"] == ["demo_00000.png"]
+                and demo["avi"]["written"] == ["demo_00000.png", "demo_00001.png"],
+                f"demo files {demo}")
+        require(all(s == [H, W, 3] for k in demo for s in demo[k]["shapes"]),
+                f"annotated shapes {demo}")
+        require(fs.LAUNCHES[fs.K1] == 0, "the pixel path builds no representation")
+
+        # --save-img on a Gen1 event file (ERGO-12 on K1)
+        ev = fake_batch(500, n_windows=1)
+        np.savez(tmp / "ev.npz", event_data=np.stack(
+            [ev.x[0].numpy(), ev.y[0].numpy(), ev.t[0].numpy(), ev.p[0].numpy()], 1))
+        fs.reset_launches()
+        dets = infer_cli.main(["--source", str(tmp / "ev.npz"), "--img-size", str(IMG),
+                               "--save-img", str(tmp / "ev.png")])
+        save_img_k1 = fs.LAUNCHES[fs.K1]
+        from PIL import Image
+
+        saved = np.asarray(Image.open(tmp / "ev.png"))
+        say("images_save_img", detections=len(dets), shape=list(saved.shape),
+            k1_launches=save_img_k1)
+        require(save_img_k1 == 1 and saved.shape == (H, W, 3), f"--save-img: {save_img_k1} "
+                f"K1 launches, image {saved.shape}")
+        launches["save_img_k1"] = save_img_k1
+
+        # a reference-style state dict of the full-width paper config,
+        # imported, served on the card and on the CPU
+        launches["convert_k1"] = torch_convert_check(dev)
+
+        # --plot-images: the mosaics, or an ImportError naming matplotlib
+        launches["plots_k1"] = plot_images_check(tmp)
+    return k3_args, launches
+
+
+def torch_convert_check(dev):
+    """``utils/torch_convert.py`` at full width: the seeded
+    ``configs/swinv2_yolov6l6_finetune.py`` detector (random pred convs) on
+    the CPU, its state dict under the reference's names in half precision
+    (the published EMA's), converted and loaded into a card server and a CPU
+    server; one request of 2 windows each. Returns the card's K1 launches."""
+    from event_representation_study_tpu_torch.cli.infer import make_server
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.utils import torch_convert
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    cfg = load_config("configs/swinv2_yolov6l6_finetune.py")
+    servers = {"cpu": make_server(cfg, "OptimizedRepresentation", H, W, IMG, 0.03, device="cpu")}
+    randomize_preds_(servers["cpu"].model, torch.Generator().manual_seed(4))
+    ref = {k: v.half() if v.is_floating_point() else v for k, v in
+           torch_convert.reference_state_dict(servers["cpu"].model.state_dict()).items()}
+    t0 = time.perf_counter()
+    sd, unmatched = torch_convert.convert_state_dict(ref)
+    convert_s = time.perf_counter() - t0
+    servers["cuda"] = make_server(cfg, "OptimizedRepresentation", H, W, IMG, 0.03, device=dev)
+    load_s = {}
+    for d in ("cpu", "cuda"):
+        problems = torch_convert.verify_against_tree(sd, servers[d].model.state_dict())
+        require(not problems and not unmatched, f"torch_convert: {problems[:5]} {unmatched[:5]}")
+        t0 = time.perf_counter()
+        servers[d].model.load_state_dict(sd, strict=True)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        load_s[d] = time.perf_counter() - t0
+    blocks = fake_batch(600, n_windows=2)
+    fs.reset_launches()
+    t0 = time.perf_counter()
+    _, p_g, _, n_g = servers["cuda"].run(blocks)
+    n_g = n_g.tolist()  # waits for the card
+    card_ms = (time.perf_counter() - t0) * 1e3
+    k1 = fs.LAUNCHES[fs.K1]
+    p_g = p_g.cpu()
+    _, p_c, _, n_c = servers["cpu"].run(blocks)
+    errs = {"boxes": (p_g[..., :4] - p_c[..., :4]).abs().max().item(),
+            "scores": (p_g[..., 4:] - p_c[..., 4:]).abs().max().item()}
+    say("images_torch_convert", keys=len(ref), converted=len(sd), skipped=len(ref) - len(sd) - len(
+        unmatched), params=sum(p.numel() for p in servers["cuda"].model.parameters()),
+        convert_s=convert_s, load_s=load_s, request_ms_card=card_ms, k1_launches=k1,
+        detections_card=n_g, detections_cpu=n_c.tolist(), max_abs_err=errs,
+        tolerance="boxes 1e-2 px, scores 1e-4", tf32=tf32_state())
+    require(errs["boxes"] <= 1e-2 and errs["scores"] <= 1e-4 and k1 == 1,
+            f"torch_convert card vs CPU: {errs}, K1 {k1}")
+    del servers
+    torch.cuda.empty_cache()
+    return k1
+
+
+def plot_images_check(tmp):
+    """``cli/train.py --plot-images`` on small Gen1 splits (a shrunk detector
+    at 640², 1 epoch): where matplotlib imports, ``train_batch.png`` and
+    ``val_pred.png`` are written; where it does not, the first plot raises
+    ``ImportError`` naming it. Returns the K1 launches of the run."""
+    import importlib.util
+
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+
+    (tmp / "gen1").mkdir()
+    for split, seed in (("training.h5", 3), ("validation.h5", 4)):
+        write_gen1_fixture(tmp / "gen1" / split, num_files=1, boxes_per_file=4,
+                           events_per_file=100_000, seed=seed)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    fs.reset_launches()
+    error = None
+    try:
+        train_cli.main(["--conf", "configs/gen1_optimized.py", "--data-path", str(tmp / "gen1"),
+                        "--override", *SMALL, "--batch-size", "2", "--img-size", str(IMG),
+                        "--epochs", "1", "--eval-interval", "1", "--plot-images",
+                        "--output-dir", str(tmp / "plots")])
+    except ImportError as e:
+        error = str(e)
+    written = {n: (tmp / "plots" / n).exists() for n in ("train_batch.png", "val_pred.png")}
+    say("images_plots", matplotlib=has_mpl, error=error, written=written,
+        k1_launches=fs.LAUNCHES[fs.K1])
+    if has_mpl:
+        require(error is None and all(written.values()), f"--plot-images: {error}, {written}")
+    else:
+        require(error is not None and "matplotlib" in error,
+                f"--plot-images without matplotlib must name it: {error}")
+    return fs.LAUNCHES[fs.K1]
+
+
 def env_phase():
     """Which optional packages import on this machine (a report only: no
     phase depends on it)."""
@@ -3661,6 +4020,11 @@ def main() -> int:
     variants_reference(dev)
     # 25. the 1 Mpx (Gen4) path: release files to training, serving and baking
     gen4_k1, gen4_k3, k1_gen4 = gen4_phase(dev, cnt_cols)
+    # 26. original-image data: the image-folder step (K3 on RGB tiles), the
+    # Trainer, the pixel demo, --save-img (K1), torch_convert, the plots
+    k3_img_args, img_launches = images_phase(dev)
+    k3_img = check_k3(k3_img_args, "kernel_K3_images")
+    del k3_img_args
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
@@ -3672,7 +4036,10 @@ def main() -> int:
                               "zoo_half": half_k1, **variant_k1, "gen4": gen4_k1,
                               "multi_step": sum(n.get(fs.K1, 0) for n in multi_launches.values()),
                               "multi_step_trainer": multi_trainer_k1,
-                              "bf16_train": bf16_launches[fs.K1]}
+                              "bf16_train": bf16_launches[fs.K1],
+                              "images_save_img": img_launches["save_img_k1"],
+                              "images_torch_convert": img_launches["convert_k1"],
+                              "images_plots": img_launches["plots_k1"]}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
                               "search": search_launches[fs.K2]}
@@ -3700,7 +4067,8 @@ def main() -> int:
     k3["launches_by_path"] = {"train": train_launches["roll_rows"],
                               "zoo": sum(r["launches"] for r in zoo_rolls.values()),
                               **variant_k3, "gen4": gen4_k3, "multi_step": multi_k3,
-                              "bf16_train": bf16_launches["roll_rows"]}
+                              "bf16_train": bf16_launches["roll_rows"],
+                              "images": img_launches["step"] + img_launches["trainer"]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     # the main figures stay those of the paper step (640²); each other shape
     # of the zoo's steps beside them, held in zoo_phase
@@ -3713,7 +4081,12 @@ def main() -> int:
         "train_640_bf16": {
             **{k: k3_bf16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                        "max_abs_err", "per_launch")},
-            "launches": bf16_launches["roll_rows"]}}
+            "launches": bf16_launches["roll_rows"]},
+        # the image-folder step's rolls: RGB tiles, 12-byte pixels
+        "images_640_rgb": {
+            **{k: k3_img[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                      "max_abs_err", "per_launch")},
+            "launches": img_launches["step"] + img_launches["trainer"]}}
     for r in zoo_rolls.values():
         if r["check"] is not None:
             k3["by_shape"][f"{r['config']}_{r['img']}"] = {

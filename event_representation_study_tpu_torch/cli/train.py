@@ -14,8 +14,10 @@ variants of tools/train.py:140-161: ``--fuse-ab``, ``--distill`` (with
 alone refuses). ``--steps-per-dispatch K`` trains K steps a call, with the
 EMA blended every step or, with ``--ema-cadence dispatch``, once a call.
 ``--override use_tensorboard=True`` / ``use_wandb=True`` add the
-TensorBoard and wandb writers. ``--plot-images`` reaches the Trainer, which
-raises naming its ROADMAP item (the plots are not ported).
+TensorBoard and wandb writers. ``--plot-images`` writes the train-batch
+and validation mosaics (``train_batch.png``, ``val_pred.png``; needs
+matplotlib). ``--override data.type=images`` trains on an image folder
+(``<data-path>/images/{train,val}`` with YOLO labels under ``labels/``).
 """
 from __future__ import annotations
 
@@ -67,7 +69,7 @@ def get_args_parser():
                    help="with --augment: extra dataset-wide samples per batch "
                         "as mosaic/mixup partners; 0 = in-batch partners")
     p.add_argument("--plot-images", action="store_true",
-                   help="train-batch/val-pred mosaics (not ported: ROADMAP M19)")
+                   help="train-batch/val-pred mosaics in the output dir (needs matplotlib)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--override", nargs="*", default=[],
                    help="dotted-key config overrides, e.g. model.depth_multiple=0.5")

@@ -1,10 +1,13 @@
-"""Strong-augmentation planning on the host, in NumPy (a copy of the parts
-of the JAX package's ``data/augment.py`` that plan the recipe): mosaic
-routing, random_affine matrices, flips and mixup, with the label math done
-here and the pixel work left to ``ops/warp.py`` or
-``reps/event_mosaic.py``; and the event-space affine + flip of the Gen1
-recipe without mosaic (:func:`plan_event_affine`,
-:func:`apply_event_affine`), which moves the events themselves on the host.
+"""Strong-augmentation planning on the host, in NumPy (a copy of the JAX
+package's ``data/augment.py``): mosaic routing, random_affine matrices,
+flips and mixup, with the label math done here and the pixel work left to
+``ops/warp.py`` or ``reps/event_mosaic.py``; the event-space affine + flip
+of the Gen1 recipe without mosaic (:func:`plan_event_affine`,
+:func:`apply_event_affine`), which moves the events themselves on the host;
+and the reference's per-image host transforms (:func:`random_affine` with
+scipy's ``affine_transform`` in cv2.warpAffine's place, :func:`mixup`,
+:func:`flip_augment`, :func:`mosaic_augmentation`), which no train path
+calls: the device warp executes the same geometry.
 
 The same ``np.random.Generator`` state gives the same plan and labels, bit
 for bit, as the JAX package's planner.
@@ -13,11 +16,18 @@ from __future__ import annotations
 
 import math
 import random
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..ops.image import letterbox_geometry
+
+try:
+    from scipy import ndimage as _ndi
+except ImportError:  # pragma: no cover
+    _ndi = None
+
+PAD_VALUE = 114.0
 
 
 def get_transform_matrix(img_shape, new_shape, degrees, scale, shear, translate,
@@ -70,6 +80,55 @@ def transform_labels(labels: np.ndarray, M: np.ndarray, s: float,
     labels = labels[keep]
     labels[:, 1:5] = new[keep]
     return labels
+
+
+def random_affine(img, labels, degrees, translate, scale, shear,
+                  new_shape: Tuple[int, int], rng: Optional[random.Random] = None):
+    """img (H, W, C) float, labels (N, 5) [cls, x1, y1, x2, y2] absolute."""
+    rng = rng or random
+    height, width = new_shape
+    M, s = get_transform_matrix(img.shape[:2], new_shape, degrees, scale, shear,
+                                translate, rng)
+    if not np.allclose(M, np.eye(3)):
+        if _ndi is not None:
+            inv = np.linalg.inv(M)
+            # M is in (x, y) convention; scipy indexes (row=y, col=x)
+            mat = np.array([[inv[1, 1], inv[1, 0]], [inv[0, 1], inv[0, 0]]])
+            off = np.array([inv[1, 2], inv[0, 2]])
+            out = np.empty((height, width, img.shape[2]), img.dtype)
+            for c in range(img.shape[2]):
+                out[..., c] = _ndi.affine_transform(
+                    img[..., c], mat, offset=off,
+                    output_shape=(height, width), order=1,
+                    mode="grid-constant",  # cv2 BORDER_CONSTANT edge blending
+                    cval=PAD_VALUE,
+                )
+            img = out
+    labels = transform_labels(labels, M, s, width, height)
+    return img, labels
+
+
+def mixup(im, labels, im2, labels2, rng: Optional[np.random.Generator] = None):
+    """Beta(32, 32) blend (data_augment.py:87-93)."""
+    rng = rng or np.random.default_rng()
+    r = rng.beta(32.0, 32.0)
+    im = im * r + im2 * (1 - r)
+    return im, np.concatenate([labels, labels2], 0)
+
+
+def flip_augment(img, labels_norm, flipud_p, fliplr_p, rng: Optional[random.Random] = None):
+    """Random ud/lr flips on (H, W, C) + normalized cxcywh labels
+    (gen1_2yolo.py:210-228)."""
+    rng = rng or random
+    if rng.random() < flipud_p:
+        img = np.flipud(img)
+        if len(labels_norm):
+            labels_norm[:, 2] = 1 - labels_norm[:, 2]
+    if rng.random() < fliplr_p:
+        img = np.fliplr(img)
+        if len(labels_norm):
+            labels_norm[:, 1] = 1 - labels_norm[:, 1]
+    return np.ascontiguousarray(img), labels_norm
 
 
 def _mosaic_tiles(s: int, xc: int, yc: int):
@@ -305,3 +364,43 @@ def plan_augment_batch(
         mix_r=mix_r,
     )
     return plan, labels, nl
+
+
+def mosaic_augmentation(img_size: int, imgs: Sequence[np.ndarray],
+                        labels: Sequence[np.ndarray],
+                        rng: Optional[random.Random] = None):
+    """4-tile mosaic (data_augment.py:187-268): place 4 images around a
+    random center in a 2x-size canvas; labels absolute xyxy."""
+    rng = rng or random
+    assert len(imgs) == 4
+    s = img_size
+    yc = int(rng.uniform(s // 2, 2 * s - s // 2))
+    xc = int(rng.uniform(s // 2, 2 * s - s // 2))
+    c = imgs[0].shape[2]
+    canvas = np.full((2 * s, 2 * s, c), PAD_VALUE, imgs[0].dtype)
+    out_labels = []
+    for i, (im, lab) in enumerate(zip(imgs, labels)):
+        h, w = im.shape[:2]
+        if i == 0:
+            x1a, y1a, x2a, y2a = max(xc - w, 0), max(yc - h, 0), xc, yc
+            x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+        elif i == 1:
+            x1a, y1a, x2a, y2a = xc, max(yc - h, 0), min(xc + w, 2 * s), yc
+            x1b, y1b = 0, h - (y2a - y1a)
+        elif i == 2:
+            x1a, y1a, x2a, y2a = max(xc - w, 0), yc, xc, min(2 * s, yc + h)
+            x1b, y1b = w - (x2a - x1a), 0
+        else:
+            x1a, y1a, x2a, y2a = xc, yc, min(xc + w, 2 * s), min(2 * s, yc + h)
+            x1b, y1b = 0, 0
+        canvas[y1a:y2a, x1a:x2a] = im[y1b : y1b + (y2a - y1a), x1b : x1b + (x2a - x1a)]
+        if len(lab):
+            l = lab.copy()
+            l[:, [1, 3]] += x1a - x1b
+            l[:, [2, 4]] += y1a - y1b
+            out_labels.append(l)
+    labels = np.concatenate(out_labels, 0) if out_labels else np.zeros((0, 5))
+    if len(labels):
+        labels[:, [1, 3]] = labels[:, [1, 3]].clip(0, 2 * s)
+        labels[:, [2, 4]] = labels[:, [2, 4]].clip(0, 2 * s)
+    return canvas, labels

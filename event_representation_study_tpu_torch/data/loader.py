@@ -217,49 +217,59 @@ class EventBatchLoader:
             gt_mask=mask.astype(np.float32),
         ), np.array([s.index for s in samples])
 
-    def __iter__(self) -> Iterator:
+    def _selections(self):
         indices = self._indices()
-        nb = len(self)
-        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
-        stop = object()
-        # a consumer that abandons the iterator mid-epoch (early break,
-        # generator close) must not strand the worker on a full queue: every
-        # put is bounded and checks the cancellation flag
-        cancelled = threading.Event()
+        for b in range(len(self)):
+            sel = indices[b * self.batch_size : (b + 1) * self.batch_size]
+            if len(sel) < self.batch_size and self.drop_last:
+                break
+            yield sel
 
-        def _put(item) -> bool:
-            while not cancelled.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
+    def __iter__(self) -> Iterator:
+        yield from prefetched(self._make_batch, list(self._selections()))
+        self.epoch += 1
 
-        def worker():
+
+def prefetched(make_batch, selections, depth: int = PREFETCH) -> Iterator:
+    """``make_batch(sel)`` of each selection in order, assembled by a
+    background thread up to ``depth`` batches ahead of the consumer; an
+    exception in the thread is raised to the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = object()
+    # a consumer that abandons the iterator mid-epoch (early break,
+    # generator close) must not strand the worker on a full queue: every
+    # put is bounded and checks the cancellation flag
+    cancelled = threading.Event()
+
+    def _put(item) -> bool:
+        while not cancelled.is_set():
             try:
-                for b in range(nb):
-                    sel = indices[b * self.batch_size : (b + 1) * self.batch_size]
-                    if len(sel) < self.batch_size and self.drop_last:
-                        break
-                    if not _put(self._make_batch(sel)):
-                        return
-            except Exception as e:  # handed to the consumer, which re-raises
-                _put(e)
-                return
-            _put(stop)
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
 
-        th = threading.Thread(target=worker, daemon=True)
-        th.start()
+    def worker():
         try:
-            while True:
-                item = q.get()
-                if item is stop:
-                    break
-                if isinstance(item, Exception):
-                    raise item
-                yield item
-            self.epoch += 1
-        finally:
-            cancelled.set()
-            th.join(timeout=10)
+            for sel in selections:
+                if not _put(make_batch(sel)):
+                    return
+        except Exception as e:  # handed to the consumer, which re-raises
+            _put(e)
+            return
+        _put(stop)
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        cancelled.set()
+        th.join(timeout=10)

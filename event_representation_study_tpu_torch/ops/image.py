@@ -16,10 +16,13 @@ PAD_VALUE = 114.0
 
 
 def letterbox_geometry(
-    h0: int, w0: int, new_shape: int
+    h0: int, w0: int, new_shape: int, scaleup: bool = True
 ) -> Tuple[float, Tuple[int, int], Tuple[float, float]]:
-    """ratio, (new_h, new_w), (dw, dh) — letterbox(auto=False) semantics."""
+    """ratio, (new_h, new_w), (dw, dh) — letterbox(auto=False) semantics;
+    without ``scaleup`` a frame smaller than ``new_shape`` keeps its size."""
     r = min(new_shape / h0, new_shape / w0)
+    if not scaleup:
+        r = min(r, 1.0)
     new_unpad = int(round(w0 * r)), int(round(h0 * r))  # (w, h)
     dw = (new_shape - new_unpad[0]) / 2
     dh = (new_shape - new_unpad[1]) / 2
@@ -76,10 +79,11 @@ def letterbox_image(img: torch.Tensor, new_shape: int,
     return out if batched else out[0]
 
 
-def letterbox_labels(labels: np.ndarray, h0: int, w0: int, new_shape: int) -> np.ndarray:
+def letterbox_labels(labels: np.ndarray, h0: int, w0: int, new_shape: int,
+                     scaleup: bool = True) -> np.ndarray:
     """Host NumPy: (M, 5) [cls, cx, cy, w, h] normalised to (h0, w0) ->
     [cls, x1, y1, x2, y2] pixels in the letterboxed frame."""
-    r, _, (dw, dh) = letterbox_geometry(h0, w0, new_shape)
+    r, _, (dw, dh) = letterbox_geometry(h0, w0, new_shape, scaleup)
     out = labels.copy().astype(np.float32)
     cx, cy, w, h = out[:, 1] * w0, out[:, 2] * h0, out[:, 3] * w0, out[:, 4] * h0
     x1 = (cx - w / 2) * r + dw

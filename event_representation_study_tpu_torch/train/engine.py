@@ -16,6 +16,14 @@ nano/small models, ``model.type`` YOLOv6n/s, take the distill_ns head),
 ``quant_calib`` (:meth:`Trainer.calibrate`: PTQ instead of training) and the
 learned representation (raw events into the detector; flips only).
 
+``data.type="images"`` trains on an image folder
+(``data/image_dataset.py``): 3-channel RGB letterboxes, no representation,
+and with ``augment`` the image-space warp of the plan (K3 in the separable
+executor). ``plot_images`` draws the first labelled rows of the first
+batch once (``train_batch.png``, event data and the per-batch step only,
+as in the JAX Trainer) and each evaluation's first batch (``val_pred.png``,
+``train/evaler.py``); it needs matplotlib.
+
 With ``steps_per_dispatch`` K > 1 an epoch groups K loader batches, stacks
 them and trains each group in one K-step call (the JAX Trainer's
 ``lax.scan`` dispatch; ``parallel/train_step.py::make_multi_train_step``),
@@ -32,10 +40,12 @@ import pathlib
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from .. import resolve_device
 from ..data.gen1 import Gen1H5
+from ..data.image_dataset import ImageBatchLoader, ImageFolderDataset
 from ..data.loader import EventBatchLoader
 from ..models import build_model
 from ..models.yolo import init_weights_
@@ -65,18 +75,14 @@ from .optim import SolverConfig, accumulation_steps, build_optimizer, with_accum
 LOGGER = get_logger("engine")
 
 
-def _unported(data_type: str, representation: Optional[str], fuse_ab: bool, distill: bool,
-              augment: bool, plot_images: bool) -> None:
+def _check_args(representation: Optional[str], fuse_ab: bool, distill: bool,
+                augment: bool) -> None:
     if distill and fuse_ab:
         # engine.py:78-80: "Distill models should turn off the fuse_ab"
         raise ValueError("distill and fuse_ab are mutually exclusive")
     if representation == LEARNED and augment:
         raise ValueError("strong aug warps representation images; the learned "
                          "representation consumes raw events (use flips only)")
-    if data_type == "images":
-        raise NotImplementedError("image-folder datasets are not ported (ROADMAP M19)")
-    if plot_images:
-        raise NotImplementedError("train/val plots are not ported (ROADMAP M19, utils/viz)")
 
 
 class Trainer:
@@ -114,8 +120,9 @@ class Trainer:
         ``data.img_size`` (640, or 576 for the ResNet and Swin configs)."""
         data = cfg.get("data", {})
         self.data_type = data.get("type", "gen1")
-        self.representation = data.get("representation", "OptimizedRepresentation")
-        _unported(self.data_type, self.representation, fuse_ab, distill, augment, plot_images)
+        self.representation = (None if self.data_type == "images"
+                               else data.get("representation", "OptimizedRepresentation"))
+        _check_args(self.representation, fuse_ab, distill, augment)
         self.learned = self.representation == LEARNED
         self.quant_calib = quant_calib
         self.device = resolve_device(device)
@@ -131,19 +138,35 @@ class Trainer:
         nc = data.get("num_classes", 2)
         ne = num_events or data.get("num_events", 50000)
         aug = cfg.get("data_aug", {})
-        self.train_ds = Gen1H5(data_root, task="train", num_events=ne)
-        self.val_ds = Gen1H5(data_root, task=eval_task, num_events=ne)
         # --augment enables the full recipe (mosaic/affine/flips/mixup),
         # planned on the host and executed on the device
-        self.train_loader = EventBatchLoader(
-            self.train_ds, batch_size, img_size=img_size, shuffle=True, seed=seed,
-            flipud=aug.get("flipud", 0.0), fliplr=aug.get("fliplr", 0.0),
-            hyp=dict(aug) if augment else None,
-            # dataset-wide mosaic/mixup partner draws (0 = in-batch)
-            partner_pool=partner_pool if augment else 0,
-        )
-        self.val_loader = EventBatchLoader(self.val_ds, batch_size, img_size=img_size,
-                                           shuffle=False, drop_last=False)
+        if self.data_type == "images":
+            # original image-folder data, the reference's TrainValDataset
+            # role (datasets.py:49-420); no representation
+            names = data.get("names")
+            self.train_ds = ImageFolderDataset(data_root, task="train", img_size=img_size,
+                                               cache_ram=bool(data.get("cache_ram")),
+                                               class_names=names)
+            self.val_ds = ImageFolderDataset(data_root, task=eval_task, img_size=img_size,
+                                             class_names=names)
+            self.train_loader = ImageBatchLoader(
+                self.train_ds, batch_size, img_size=img_size, shuffle=True, seed=seed,
+                hyp=dict(aug) if augment else None,
+                partner_pool=partner_pool if augment else 0)
+            self.val_loader = ImageBatchLoader(self.val_ds, batch_size, img_size=img_size,
+                                               shuffle=False, drop_last=False)
+        else:
+            self.train_ds = Gen1H5(data_root, task="train", num_events=ne)
+            self.val_ds = Gen1H5(data_root, task=eval_task, num_events=ne)
+            self.train_loader = EventBatchLoader(
+                self.train_ds, batch_size, img_size=img_size, shuffle=True, seed=seed,
+                flipud=aug.get("flipud", 0.0), fliplr=aug.get("fliplr", 0.0),
+                hyp=dict(aug) if augment else None,
+                # dataset-wide mosaic/mixup partner draws (0 = in-batch)
+                partner_pool=partner_pool if augment else 0,
+            )
+            self.val_loader = EventBatchLoader(self.val_ds, batch_size, img_size=img_size,
+                                               shuffle=False, drop_last=False)
 
         solver = cfg.get("solver", {})
         # gradient accumulation to the nominal effective batch (engine.py:526:
@@ -178,8 +201,8 @@ class Trainer:
             round(self.solver_cfg.warmup_epochs * len(self.train_loader)), 1000)
 
         if aug_mode == "auto":
-            aug_mode = ("event" if not self.learned and supports_event_mosaic(self.representation)
-                        else "image")
+            aug_mode = ("event" if self.representation is not None and not self.learned
+                        and supports_event_mosaic(self.representation) else "image")
             LOGGER.info("aug_mode auto -> %s", aug_mode)
         self.aug_mode = aug_mode
         # image executor: the separable two-pass warp whenever the hyp ranges
@@ -192,7 +215,9 @@ class Trainer:
         self.warp_impl = warp_impl
 
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        channels = REPRESENTATION_CHANNELS.get(self.representation, 12)  # the input follows the rep
+        # the input follows the representation; image folders are RGB
+        channels = (3 if self.representation is None
+                    else REPRESENTATION_CHANNELS.get(self.representation, 12))
         # the distill_ns head only for the nano/small families (engine.py:69-73)
         self.distill_ns = bool(distill and cfg["model"].get("type") in ("YOLOv6n", "YOLOv6s"))
         model_kw = dict(num_classes=nc, num_channels=channels, device=self.device,
@@ -250,6 +275,8 @@ class Trainer:
             use_tensorboard=bool(cfg.get("use_tensorboard")),
         )
         self.log_interval = 200  # loss every 200 steps (engine.py:264-265)
+        self.plot_images = plot_images
+        self._plotted_train_batch = False
 
     def should_eval(self, epoch: int) -> bool:
         return (
@@ -329,12 +356,27 @@ class Trainer:
         """The per-batch epoch; returns the last step's parts."""
         parts = None
         for batch, _ in self.train_loader:
+            if (self.plot_images and not self._plotted_train_batch
+                    and self.evaler._images is not None):
+                self._plot_train_batch(batch)
             self.state, parts = self.train_step(self.state, batch, epoch)
             # the host-side step count: reading a device value here would
             # wait for every step
             if self.state.step % self.log_interval == 0:
                 self.writer.log({k: float(v) for k, v in parts.items()}, self.state.step)
         return parts
+
+    def _plot_train_batch(self, batch):
+        """The train-batch mosaic with its boxes (engine.py:719-780), once:
+        the letterboxed representation of the labelled rows (a partner pool
+        adds rows) under the batch's boxes, as in the JAX Trainer."""
+        from ..utils.viz import plot_train_batch
+
+        imgs = self.evaler._images(batch.events)[: batch.gt_labels.shape[0]]
+        plot_train_batch(imgs.cpu().numpy(), np.asarray(batch.gt_bboxes),
+                         np.asarray(batch.gt_mask),
+                         path=str(self.output_dir / "train_batch.png"))
+        self._plotted_train_batch = True
 
     def _train_epoch_scanned(self, epoch: int):
         """The K-steps-a-call epoch: K loader batches stacked into one
@@ -357,7 +399,8 @@ class Trainer:
         return parts
 
     def eval_and_save(self, epoch: int) -> Dict[str, float]:
-        stats = self.evaler.run(self.state.ema.variables)
+        stats = self.evaler.run(self.state.ema.variables,
+                                plot_dir=str(self.output_dir) if self.plot_images else None)
         self.writer.log({f"val/{k}": v for k, v in stats.items()
                          if isinstance(v, (int, float))}, self.state.step)
         save_checkpoint(self.output_dir / "last_ckpt", self.state, epoch)

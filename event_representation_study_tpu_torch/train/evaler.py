@@ -2,11 +2,15 @@
 of ev-YOLOv6/yolov6/core/evaler.py).
 
 Per batch: the eval step (events -> ERGO-12 on kernel K1 -> letterbox ->
-detector) and NMS on the device, then on the host the detections are
-un-letterboxed to sensor coordinates (scale_coords semantics,
-evaler.py:512-543) and fed to the COCO evaluator, with the reference's
-4-slot speed accounting (samples / pre-process / inference+NMS / post,
-evaler.py:138-177).
+detector, or an image loader's letterboxed images -> detector) and NMS on
+the device, then on the host the detections are un-letterboxed to sensor
+coordinates (scale_coords semantics, evaler.py:512-543; the identity for an
+image folder, whose frame is the letterbox) and fed to the COCO evaluator,
+with the reference's 4-slot speed accounting (samples / pre-process /
+inference+NMS / post, evaler.py:138-177). With ``plot_dir``, the first
+batch's letterboxed representation with its boxes and detections goes to
+``val_pred.png`` (engine.py:782-913; event data only, as in the JAX
+Evaler).
 """
 from __future__ import annotations
 
@@ -21,9 +25,10 @@ import torch
 from .. import resolve_device
 from ..metrics.coco import CocoEvaluator
 from ..metrics.det_metrics import PRMetric
-from ..ops.image import scale_coords_back
+from ..ops.image import letterbox_image, scale_coords_back
 from ..ops.nms import non_max_suppression
-from ..parallel.train_step import make_eval_step
+from ..parallel.train_step import LEARNED, make_eval_step
+from ..reps.dispatch import batched_representation
 
 
 class Evaler:
@@ -39,7 +44,8 @@ class Evaler:
         device="cuda",
     ):
         """``model`` on ``device`` (``cuda`` unless the caller asks for
-        ``cpu``), ``loader`` an ``EventBatchLoader`` over the eval split."""
+        ``cpu``), ``loader`` an ``EventBatchLoader`` over the eval split, or
+        an ``ImageBatchLoader`` with ``representation`` None."""
         device = resolve_device(device)
         self.loader = loader
         self.num_classes = num_classes
@@ -49,6 +55,16 @@ class Evaler:
         ds = loader.ds
         self._eval_step = make_eval_step(model, representation, rep_hw=(ds.height, ds.width),
                                          img_size=img_size, device=device)
+        # letterboxed 0..255 representations for the plots (engine.py:719-913)
+        self._images = None
+        if representation and representation != LEARNED:
+            rep_fn = batched_representation(representation, ds.height, ds.width)
+
+            @torch.inference_mode()
+            def images(events):
+                return letterbox_image(rep_fn(events.to(device).as_int32()), img_size)
+
+            self._images = images
 
     def run(self, variables: Optional[Dict[str, torch.Tensor]], do_pr_metric: bool = False,
             speed_only: bool = False, plot_dir=None, predictions_json=None) -> Dict[str, float]:
@@ -61,28 +77,38 @@ class Evaler:
         ``do_pr_metric`` adds the per-class PR/F1/confusion summary
         (evaler.py:179-337); ``speed_only`` skips the metrics (the speed
         task, evaler.py:491-501); ``predictions_json`` writes COCO-format
-        prediction records (evaler.py:545-568).
+        prediction records (evaler.py:545-568); ``plot_dir`` draws the first
+        batch (``val_pred.png``; event data only; needs matplotlib).
 
         The loop is software-pipelined: batch ``k``'s device work is queued
         before batch ``k-1``'s detections are read back, so host work (the
         loader's H5 reads, COCO matching) overlaps device compute. The
         detections stay on the device until the drain, whose ``.cpu()`` is
         the only synchronisation."""
-        if plot_dir is not None:
-            raise NotImplementedError("validation plots are not ported (ROADMAP M19, utils/viz)")
         ds = self.loader.ds
         coco = CocoEvaluator(self.num_classes)
         pr = PRMetric(self.num_classes) if do_pr_metric else None
         speed = {"n": 0, "pre_ms": 0.0, "infer_ms": 0.0, "post_ms": 0.0}
         coco_records = [] if predictions_json else None
+        plotted = plot_dir is None
 
         def drain(pending):
+            nonlocal plotted
             dets_d, counts_d, host_batch, indices = pending
             t0 = time.perf_counter()
             dets = dets_d.cpu()  # waits for the device
             counts = counts_d.cpu()
             t1 = time.perf_counter()
             nb = dets.shape[0]
+            if not plotted and self._images is not None:
+                from ..utils.viz import plot_val_predictions
+
+                plot_val_predictions(
+                    self._images(host_batch.events).cpu().numpy(), dets.numpy(),
+                    counts.numpy(), np.asarray(host_batch.gt_bboxes),
+                    np.asarray(host_batch.gt_mask),
+                    path=str(pathlib.Path(plot_dir) / "val_pred.png"))
+                plotted = True
             if not speed_only:
                 labels = np.asarray(host_batch.gt_labels)
                 boxes = np.asarray(host_batch.gt_bboxes)

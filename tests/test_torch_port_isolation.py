@@ -19,8 +19,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
 # the representation library, the GWD ranking, the channel search, the
 # event windows, the N-ImageNet classification, the detector zoo, the
 # training variants and deploy tools, the 1 Mpx data with the event-file
-# tools, and the metrics writers' and utilities' own copies, imported in the
-# probe too
+# tools, the metrics writers' and utilities' own copies, and the image data,
+# demo inputs, plots and reference-checkpoint import, imported in the probe
+# too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
@@ -33,7 +34,8 @@ NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_s
                "train.losses_variants", "train.rep_optimizer", "utils.quantize",
                "utils.export", "events.prophesee", "events.filters", "events.rosbag",
                "data.gen4", "data.gen4_legacy", "cli.consolidate", "cli.convert",
-               "cli.precompute_reps", "utils.tb_native", "utils.profiling", "utils.tasks")
+               "cli.precompute_reps", "utils.tb_native", "utils.profiling", "utils.tasks",
+               "data.image_dataset", "data.demo_data", "utils.viz", "utils.torch_convert")
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -224,12 +226,39 @@ def _train_step(**kw):
 
 
 def _images_trainer(tmp):
+    """A shrunk Trainer on a synthetic image folder (``data.type=images``),
+    one epoch with --augment: 3-channel input, the image-space warp."""
+    from event_representation_study_tpu_torch.data.image_dataset import write_image_folder
     from event_representation_study_tpu_torch.train.engine import Trainer
     from event_representation_study_tpu_torch.utils.config import load_config
 
-    cfg = load_config(REPO / "configs/gen1_optimized.py")
-    cfg["data"]["type"] = "images"
-    return Trainer(cfg, tmp, device="cpu")
+    write_image_folder(tmp, n=4, seed=1)
+    cfg = load_config(REPO / "configs/gen1_optimized.py", overrides=SMALL + ["data.type=images"])
+    tr = Trainer(cfg, tmp, batch_size=2, epochs=1, img_size=64, output_dir=tmp / "out",
+                 augment=True, device="cpu")
+    tr.train()
+    assert tr.representation is None and tr.aug_mode == "image" and tr.state.step == 2
+    assert tr.model.backbone.stem.conv.weight.shape[1] == 3
+    return tr
+
+
+def _plots_trainer(tmp):
+    """A shrunk Trainer on Gen1 splits with ``plot_images``: the train-batch
+    and validation mosaics are written."""
+    from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
+    from event_representation_study_tpu_torch.train.engine import Trainer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    for split in ("training.h5", "validation.h5"):
+        write_gen1_fixture(tmp / split, num_files=1, boxes_per_file=3, events_per_file=2000,
+                           seed=7)
+    tr = Trainer(load_config(REPO / "configs/gen1_optimized.py", overrides=SMALL), tmp,
+                 batch_size=2, epochs=1, img_size=64, num_events=512, output_dir=tmp / "out",
+                 plot_images=True, device="cpu")
+    tr.train()
+    for name in ("train_batch.png", "val_pred.png"):
+        assert (tmp / "out" / name).stat().st_size > 1000, name
+    return tr
 
 
 SMALL = ["model.depth_multiple=0.2", "model.width_multiple=0.125"]
@@ -280,15 +309,15 @@ def _k_step_trainer_runs(tmp):
 @pytest.mark.parametrize(
     "call,item",
     [
-        (lambda tmp: _trainer(tmp, plot_images=True), "M19"),
+        (_plots_trainer, None),
         (_bf16_step_runs, None),
-        (_images_trainer, "M19"),
+        (_images_trainer, None),
         (_k_step_trainer_runs, None),
     ],
-    # ids of paths since ported keep their names: "train_ptq" for a bf16
-    # train step (M20; ported, it runs), "backbone" for an image-folder
-    # dataset (M19), "train_event_aug" for multi-step dispatch (M7; ported,
-    # it runs)
+    # ids of paths since ported keep their names: "train_plots" for the
+    # train/val plots (M19), "train_ptq" for a bf16 train step (M20),
+    # "backbone" for an image-folder dataset (M19), "train_event_aug" for
+    # multi-step dispatch (M7); ported, each runs
     ids=["train_plots", "train_ptq", "backbone", "train_event_aug"],
 )
 def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
@@ -324,13 +353,6 @@ def test_calib_needs_quant(tmp_path):
 
     with pytest.raises(SystemExit):
         train_cli.main(["--data-path", str(tmp_path), "--calib", "--device", "cpu"])
-
-
-def _trainer(tmp, **kw):
-    from event_representation_study_tpu_torch.train.engine import Trainer
-    from event_representation_study_tpu_torch.utils.config import load_config
-
-    return Trainer(load_config(REPO / "configs/gen1_optimized.py"), tmp, device="cpu", **kw)
 
 
 def _build(**kw):

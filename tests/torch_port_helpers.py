@@ -692,3 +692,79 @@ def check_variant_step(name, part, got, want, before):
             assert_close(f"{name} {k}", got["parts"][k], want["parts"][k], atol=1e-7,
                          rtol=rtol)
     assert set(got["parts"]) == set(want["parts"])
+
+
+# -- a train step on an image-folder batch (tests/test_torch_port_image_step*.py)
+
+IMAGE_STEP = dict(S=64, EPOCH=0, START_UPDATE=1500, SOLVER=dict(epochs=300, steps_per_epoch=1000))
+
+
+def image_step_batch(root):
+    """The first batch (4 tiles, a partner pool of 2, the paper recipe with
+    mosaic and mixup at 1.0) of the port's ImageBatchLoader over a
+    ``write_image_folder`` train split at 64 px."""
+    from event_representation_study_tpu_torch.data import image_dataset
+
+    s = IMAGE_STEP["S"]
+    image_dataset.write_image_folder(root, n=8, seed=0, tasks=("train",))
+    loader = image_dataset.ImageBatchLoader(
+        image_dataset.ImageFolderDataset(root, task="train", img_size=s, max_labels=4), 4,
+        img_size=s, shuffle=True, seed=3,
+        hyp=dict(small_cfg()["data_aug"], mosaic=1.0, mixup=1.0), partner_pool=2)
+    return next(iter(loader))[0]
+
+
+def image_step_models(dtype):
+    """(loss config kwargs, JAX variables, JAX model, port model): the
+    shrunk paper detector at 3 channels computing in ``dtype`` in both
+    packages, from the same random weights (the class preds at their
+    init)."""
+    import jax
+    import jax.numpy as jnp
+
+    from event_representation_study_tpu.models import build_model as jax_build_model
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.utils.convert import flax_to_torch
+
+    cfg = small_cfg()
+    hd = cfg["model"]["head"]
+    loss_kw = dict(num_classes=2, strides=tuple(hd["strides"]), reg_max=hd["reg_max"],
+                   iou_type=hd["iou_type"])
+    s = IMAGE_STEP["S"]
+    variables = random_variables(jax_build_model(cfg, num_classes=2), jnp.zeros((1, s, s, 3)),
+                                 seed=3)
+    for name, leaf in variables["params"]["head"].items():
+        if name.startswith("cls_pred_"):
+            leaf["kernel"] = np.zeros_like(leaf["kernel"])
+            leaf["bias"] = np.full_like(leaf["bias"], -np.log(99.0))
+    variables = jax.tree.map(lambda a: np.asarray(a, dtype), variables)
+    jax_model = jax_build_model(cfg, num_classes=2, dtype=jnp.dtype(dtype))
+    model = build_model(cfg, 2, num_channels=3, device="cpu")
+    model.load_state_dict(flax_to_torch(jax.tree.map(np.copy, variables)), strict=True)
+    return loss_kw, variables, jax_model, model.to(getattr(torch, np.dtype(dtype).name))
+
+
+def jax_image_step(jax_model, loss_kw, variables, batch_j):
+    """The JAX package's train step (separable warp, no EMA, SGD past its
+    warmup) on ``batch_j``: (gradients as flat Flax paths, loss parts)."""
+    import jax.numpy as jnp
+
+    from event_representation_study_tpu.parallel import train_step as jax_train_step
+    from event_representation_study_tpu.train import ema as jax_ema
+    from event_representation_study_tpu.train import losses as jax_losses
+    from event_representation_study_tpu.train import optim as jax_optim
+
+    c = IMAGE_STEP
+    tx_j = _with_grad_spy(jax_optim.build_optimizer(variables["params"],
+                                                    jax_optim.SolverConfig(**c["SOLVER"])))
+    opt0 = tx_j.init(variables["params"])
+    state_j = jax_train_step.TrainState(
+        variables["params"], variables["batch_stats"],
+        (opt0[0]._replace(count=jnp.int32(c["START_UPDATE"])), opt0[1]),
+        jax_ema.EMAState(variables, jnp.int32(0)), jnp.int32(0))
+    step_j = jax_train_step.make_train_step(
+        jax_model, jax_losses.LossConfig(**loss_kw), tx_j, representation=None,
+        rep_hw=(c["S"], c["S"]), img_size=c["S"], donate=False, warp_impl="separable",
+        update_ema=False)
+    new_j, parts_j = step_j(state_j, batch_j, c["EPOCH"])
+    return jax_leaves(new_j.opt_state[1], "params"), {k: float(v) for k, v in parts_j.items()}
