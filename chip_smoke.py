@@ -210,6 +210,24 @@ Phases, one printed line each:
    kernel_K3_images: K3 at the RGB step's captured shapes (the 4-byte
    vector branch) against its plain version, timed beside its bound and
    ``torch.gather``.
+27. trainer_ddp: ``cli/train.py`` at full width on the trainer phase's
+   splits for an epoch with the image-space strong augmentation (K1 once
+   and K3 twice a step, K1 once an eval batch), run as a world of one
+   through NCCL (``RANK=0 WORLD_SIZE=1`` and an address: the gradients
+   all-reduced each step, the group left at the end) beside the same run
+   without a process group: step medians side by side, the first losses
+   within 1e-3.
+28-30. Two gloo processes sharing the card (spawned once):
+   parallel_event_shard: every sharded representation
+   (``parallel/event_shard.py``: ERGO-12 and the time surface on K1 once a
+   rank, a sum-only MDES table, the histogram and the voxel grid on K2,
+   TORE) of the serve batch split over an "event" axis of 2, against the
+   unsharded call on the card; parallel_ddp: one data-parallel step of the
+   shrunk detector at 320² (4 windows a rank, rank 1 without a box; global
+   BatchNorm, summed gradients; K1 once and K3 twice a rank) against the
+   one-process step on the 8 windows from the same weights, the ranks'
+   states bit-equal; parallel_tp: the same detector sharded by output
+   channel over a "model" axis of 2 against the replicated step.
 Then the ``{"kernels": [...]}`` line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code non-zero
 and no result line.
@@ -3818,6 +3836,530 @@ def plot_images_check(tmp):
     return fs.LAUNCHES[fs.K1]
 
 
+# -- the parallel layer: data parallel through the Trainer, event sharding,
+# -- the data-parallel step and tensor parallelism ----------------------------
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def trainer_ddp_phase(dev):
+    """``cli/train.py`` at the full width of ``configs/gen1_optimized.py``,
+    as a world of one through NCCL (``RANK=0 WORLD_SIZE=1`` and an
+    address), beside the same run without a process group: 1 epoch of the
+    trainer phase's synthetic splits with the image-space strong
+    augmentation (separable warp: K3 twice a step, K1 once a step and an
+    eval batch) and an eval. The step all-reduces its gradients through
+    NCCL; every step's loss and the epoch's parameter update match the run
+    without a group. Returns
+    the NCCL run's (K1, K3) launches."""
+    import os
+    import pathlib
+    import tempfile
+
+    import torch.distributed as dist
+
+    from event_representation_study_tpu_torch.cli import train as train_cli
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.parallel import train_step as train_step_mod
+
+    reduced = []
+    real_summed = train_step_mod._summed
+
+    def summed(grads, group):
+        reduced.append((dist.get_backend(group), dist.get_world_size(group)))
+        return real_summed(grads, group)
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1"}
+    runs, updates = {}, {}
+    probe = TrainerProbe()
+    with tempfile.TemporaryDirectory() as tmp:
+        _trainer_fixture(pathlib.Path(tmp))
+        args = ["--conf", "configs/gen1_optimized.py", "--data-path", tmp,
+                "--batch-size", str(B), "--img-size", str(IMG), "--num-events", str(N),
+                "--augment", "--aug-mode", "image", "--stop-aug-last-n-epoch", "0",
+                "--eval-interval", "1", "--epochs", "1", "--device", dev.type]
+        probe.install()
+        train_step_mod._summed = summed
+        try:
+            for name in ("single", "nccl"):
+                if name == "nccl":
+                    os.environ.update(env, MASTER_PORT=str(_free_port()))
+                n_steps, n_evals, n_reduced = len(probe.steps), len(probe.evals), len(reduced)
+                probe.snapshot = None
+                fs.reset_launches()
+                roll.reset_launches()
+                t0 = time.perf_counter()
+                tr = train_cli.main(args + ["--output-dir", f"{tmp}/{name}"])
+                runs[name] = {"s": time.perf_counter() - t0, "steps": probe.steps[n_steps:],
+                              "evals": probe.evals[n_evals:], "reduced": reduced[n_reduced:],
+                              "k1": fs.LAUNCHES[fs.K1], "k3": roll.LAUNCHES[roll.K3],
+                              "group_left": not dist.is_initialized(),
+                              "warp": tr.warp_impl, "aug_mode": tr.aug_mode}
+                # the epoch's whole update, on the card: each run against the other below
+                updates[name] = {n: p.detach() - probe.snapshot[0][n]
+                                 for n, p in tr.state.model.named_parameters()}
+                del tr
+                torch.cuda.empty_cache()
+                for k in (*env, "MASTER_PORT"):
+                    os.environ.pop(k, None)
+        finally:
+            probe.uninstall()
+            train_step_mod._summed = real_summed
+    view = {name: {"run_s": r["s"], "step_ms_median": statistics.median(s["ms"] for s in r["steps"]),
+                   "step_ms": [s["ms"] for s in r["steps"]],
+                   "losses": [s["loss"] for s in r["steps"]],
+                   "k1_per_step": [s["k1"] for s in r["steps"]],
+                   "k3_per_step": [s["k3"] for s in r["steps"]],
+                   "eval_k1_per_batch": r["evals"], "k1_launches": r["k1"], "k3_launches": r["k3"],
+                   "gradient_all_reduces": r["reduced"][:1] + [len(r["reduced"])],
+                   "group_left": r["group_left"], "aug_mode": r["aug_mode"], "warp": r["warp"]}
+            for name, r in runs.items()}
+    losses = [[s["loss"] for s in runs[n]["steps"]] for n in ("single", "nccl")]
+    loss_rel = max((abs(b - a) / abs(a) for a, b in zip(*losses)), default=math.inf)
+    update_err = leaf_error(updates["nccl"], updates["single"])
+    update_max = max(d.abs().max().item() for d in updates["single"].values())
+    del updates
+    torch.cuda.empty_cache()
+    say("trainer_ddp", **view, loss_rel_diff=loss_rel, update_leaf_scale=update_err,
+        update_max=update_max,
+        tolerance="every step's loss 1e-3 relative; the epoch's update 2e-2 of leaf scale",
+        tf32=tf32_state())
+    for name, r in runs.items():
+        require(r["aug_mode"] == "image" and r["warp"] == "separable",
+                f"{name}: aug_mode {r['aug_mode']}, warp {r['warp']}")
+        require(all(s["k1"] == 1 and s["k3"] == 2 for s in r["steps"]) and r["steps"],
+                f"{name}: K1/K3 a step {[(s['k1'], s['k3']) for s in r['steps']]}")
+        require(all(e == 1 for e in r["evals"]) and r["evals"], f"{name}: eval K1 {r['evals']}")
+        require(all(math.isfinite(s["loss"]) for s in r["steps"]), f"{name}: losses")
+    require(runs["single"]["reduced"] == [] and runs["nccl"]["group_left"],
+            "the run without a group reduced gradients, or the NCCL run kept its group")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    require(runs["nccl"]["reduced"] == [(backend, 1)] * len(runs["nccl"]["steps"]),
+            f"NCCL gradient all-reduces {runs['nccl']['reduced']}")
+    require(len(losses[0]) == len(losses[1]) and loss_rel <= 1e-3,
+            f"losses with and without the group: {losses}")
+    require(update_max > 0 and update_err[0] <= 2e-2,
+            f"the epoch's update with and without the group: {update_err}, largest {update_max}")
+    return runs["nccl"]["k1"], runs["nccl"]["k3"]
+
+
+PARALLEL_WORLD = 2  # gloo ranks sharing the one card
+DDP_IMG, DDP_B = 320, 8  # the shrunk detector's data-parallel batch: 4 a rank
+EVENT_SHARD_TOLERANCE = ("histogram, TORE, the time surface, max channels and channels of "
+                         "count / polarity columns exact; timestamp sums 2e-4 (ERGO-12, MDES), "
+                         "voxel grid 1e-5 relative + 1e-4")
+
+
+def _launch_counts():
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+
+    return {"K1": fs.LAUNCHES[fs.K1], "K2": fs.LAUNCHES[fs.K2], "K3": roll.LAUNCHES[roll.K3]}
+
+
+def _counted(fn):
+    """(fn's result, the K1/K2/K3 launches it made), synchronised."""
+    from event_representation_study_tpu_torch.ops import fused_scatter as fs
+    from event_representation_study_tpu_torch.ops import roll
+
+    fs.reset_launches()
+    roll.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _launch_counts()
+
+
+def _event_shard_part(rank: int, world: int, dev) -> dict:
+    """Every sharded representation on this rank's half of the serve batch
+    (8 x 50,000 events, 240x304) against the unsharded one on the card."""
+    from event_representation_study_tpu_torch.parallel import event_shard as es
+    from event_representation_study_tpu_torch.parallel.mesh import make_mesh
+    from event_representation_study_tpu_torch.reps import fused_mdes, fused_reps
+    from event_representation_study_tpu_torch.reps.ergo12 import (
+        AGGREGATIONS, FUNCTIONS, WINDOW_INDEXES)
+    from event_representation_study_tpu_torch.reps.tore import tore
+
+    mesh = make_mesh(axis_names=("data", "event"), shape=(1, world), device=dev)
+    blocks = fake_batch(0)
+    loc = es.place_event_sharded(blocks, mesh)
+    whole = blocks.to(dev)
+    table = list(zip(WINDOW_INDEXES, FUNCTIONS, AGGREGATIONS))
+    sum_only = [row for row in table if row[2] != "max"]
+    tables = {"ergo12": table, "mdes_sum_only": sum_only}
+    cases = {
+        "ergo12": (lambda: es.sharded_ergo12(loc, H, W, mesh),
+                   lambda: fused_mdes.ergo12_fused_batched(whole, H, W)),
+        "mdes_sum_only": (lambda: es.sharded_mdes(loc, H, W, mesh, *zip(*sum_only)),
+                          lambda: fused_mdes.mdes_fused_batched(whole, H, W, *zip(*sum_only))),
+        "time_surface": (lambda: es.sharded_time_surface(loc, H, W, mesh),
+                         lambda: fused_reps.time_surface_fused_batched(whole, H, W)),
+        "histogram": (lambda: es.sharded_histogram(loc, H, W, mesh),
+                      lambda: fused_reps.histogram_fused_batched(whole, H, W)),
+        "voxel_grid": (lambda: es.sharded_voxel_grid(loc, H, W, mesh),
+                       lambda: fused_reps.voxel_grid_fused_batched(whole, H, W)),
+        "tore": (lambda: es.sharded_tore(loc, H, W, mesh), lambda: tore(whole, H, W)),
+    }
+    out = {"local_events": list(loc.x.shape)}
+    for name, (sharded, unsharded) in cases.items():
+        sharded()  # warm-up
+        got, launches = _counted(sharded)
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            sharded()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        want = unsharded()
+        diff = (got - want).abs()
+        if name in tables:
+            exact = [c for c, (_, f, a) in enumerate(tables[name])
+                     if a == "max" or not f.startswith("timestamp")]
+            inexact = [c for c in range(got.shape[-1]) if c not in exact]
+            errs = {"exact_channels": diff[..., exact].max().item(),
+                    "timestamp_channels": diff[..., inexact].max().item()}
+            ok = errs["exact_channels"] == 0 and errs["timestamp_channels"] <= 2e-4
+        elif name == "voxel_grid":
+            errs = {"max_abs": diff.max().item()}
+            ok = bool((diff <= 1e-4 + 1e-5 * want.abs()).all())
+        else:
+            errs = {"max_abs": diff.max().item()}
+            ok = torch.equal(got, want)
+        out[name] = {"shape": list(got.shape), "launches": launches, "errors": errs, "ok": ok,
+                     "finite": bool(torch.isfinite(got).all()), "ms": statistics.median(times)}
+    return out
+
+
+def _ddp_batches():
+    """The whole batch (DDP_B windows of 50,000 events at DDP_IMG, the
+    paper recipe with mosaic and mixup at 1.0) and each rank's half, each
+    half planned alone (partners within it) and the whole batch's plan the
+    halves' with the second's partner rows shifted; rank 1's windows carry
+    no box."""
+    from event_representation_study_tpu_torch.data.augment import plan_augment_batch
+    from event_representation_study_tpu_torch.ops.warp import AugPlan
+    from event_representation_study_tpu_torch.parallel.train_step import Batch
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    half = DDP_B // PARALLEL_WORLD
+    hyp = dict(load_config("configs/gen1_optimized.py", overrides=SMALL)["data_aug"],
+               mosaic=1.0, mixup=1.0)
+    rng = np.random.default_rng(41)
+    blocks = fake_batch(40, n_windows=DDP_B)
+    labels = fake_labels(rng, half, DDP_IMG) + [np.zeros((0, 5), np.float32)] * half
+    cap = LABELS_PER_WINDOW * 4 * 2
+    halves, plans = [], []
+    for r in range(PARALLEL_WORLD):
+        rows = slice(r * half, (r + 1) * half)
+        plan, lab, nl = plan_augment_batch(labels[rows], DDP_IMG, hyp, rng, cap)
+        plan = dict(plan, src_idx=plan["src_idx"] + r * half, mix_idx=plan["mix_idx"] + r * half)
+        plans.append(plan)
+        mask = (np.arange(cap)[None] < nl[:, None]).astype(np.float32)
+        halves.append((lab, mask))
+    whole_plan = {k: np.concatenate([p[k] for p in plans]) for k in plans[0]}
+    lab = np.concatenate([h[0] for h in halves])
+    mask = np.concatenate([h[1] for h in halves])
+    whole = Batch(None, blocks, lab[..., 0], lab[..., 1:5], mask, AugPlan(**whole_plan))
+
+    def rank_rows(r):
+        rows = slice(r * half, (r + 1) * half)
+        plan = dict(plans[r], src_idx=plans[r]["src_idx"] - r * half,
+                    mix_idx=plans[r]["mix_idx"] - r * half)
+        ev = blocks
+        part = type(ev)(*(getattr(ev, f.name)[rows] for f in dataclasses.fields(ev)))
+        return Batch(None, part, lab[rows, :, 0], lab[rows, :, 1:5], mask[rows], AugPlan(**plan))
+
+    return whole, [rank_rows(r) for r in range(PARALLEL_WORLD)]
+
+
+def _small_state(dev, seed: int = 4):
+    """The shrunk detector with random pred convs (so that gradients reach
+    every layer) and its optimizer past the warmup and its EMA; the
+    optimizer's gradients recorded as it sees them."""
+    from event_representation_study_tpu_torch.models import build_model
+    from event_representation_study_tpu_torch.parallel.train_step import TrainState
+    from event_representation_study_tpu_torch.train.ema import ema_init
+    from event_representation_study_tpu_torch.train.optim import build_optimizer
+    from event_representation_study_tpu_torch.utils.config import load_config
+
+    small = load_config("configs/gen1_optimized.py", overrides=SMALL)
+    model = build_model(small, 2, device="cpu", generator=torch.Generator().manual_seed(seed))
+    randomize_preds_(model, torch.Generator().manual_seed(seed + 2))
+    model = model.to(dev)
+    opt = build_optimizer(model, solver_config(small))
+    opt.count = 1500  # past the warmup: every group has a learning rate
+    seen = {}
+    real = opt.update
+
+    def spy(grads):
+        seen.clear()
+        seen.update({n: g.detach().clone() for n, g in grads.items()})
+        real(grads)
+
+    opt.update = spy
+    return TrainState(model, opt, ema_init(model), 0), seen, small
+
+
+def _step_record(state, seen, parts, p0):
+    return {"parts": {k: v.item() for k, v in parts.items()},
+            "grads": {n: g.cpu() for n, g in seen.items()},
+            "delta": {n: (p.detach() - p0[n]).cpu() for n, p in state.model.named_parameters()},
+            "bn": {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()
+                   if "running" in k}}
+
+
+def _state_digest(state) -> str:
+    import hashlib
+
+    flat = torch.cat([t.detach().reshape(-1).float().cpu()
+                      for t in state.model.state_dict().values() if t.is_floating_point()])
+    return hashlib.sha256(flat.numpy().tobytes()).hexdigest()
+
+
+def _timed_steps(step, state, batch, epoch: int, n: int = 3) -> list:
+    """Host ms of ``n`` more steps on ``batch``, each synchronised (the
+    checked step before them was the process's first)."""
+    times = []
+    for _ in range(n):
+        t = time.perf_counter()
+        state, parts = step(state, batch, epoch)
+        parts["loss"].item()
+        times.append((time.perf_counter() - t) * 1e3)
+    return times
+
+
+def _ddp_part(rank: int, world: int, dev) -> dict:
+    """One data-parallel step of the shrunk detector at DDP_IMG on this
+    rank's half of the batch (global BatchNorm, summed gradients) and, on
+    rank 0, the one-process step on the whole batch from the same weights."""
+    import torch.distributed as dist
+
+    from event_representation_study_tpu_torch.parallel.train_step import make_train_step
+
+    whole, halves = _ddp_batches()
+    kw = dict(representation="OptimizedRepresentation", rep_hw=(H, W), img_size=DDP_IMG,
+              warp_impl="separable", device=dev)
+    out = {}
+    if rank == 0:
+        ref, seen, small = _small_state(dev)
+        p0 = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+        ref, parts = make_train_step(loss_config(small), **kw)(ref, whole, 0)
+        out["reference"] = _step_record(ref, seen, parts, p0)
+        del ref
+    state, seen, small = _small_state(dev)
+    p0 = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    step = make_train_step(loss_config(small), group=dist.group.WORLD, **kw)
+    (state, parts), launches = _counted(lambda: step(state, halves[rank], 0))
+    out["launches"] = launches
+    out["group"] = _step_record(state, seen, parts, p0)
+    out["digest"] = _state_digest(state)
+    out["ms"] = _timed_steps(step, state, halves[rank], 0)
+    out["rank_positives"] = float(np.asarray(halves[rank].gt_mask).sum())
+    return out
+
+
+def _tp_part(rank: int, world: int, dev) -> dict:
+    """One step of the shrunk detector at DDP_IMG with its convolutions
+    sharded by output channel over a "model" axis of 2 (the whole batch
+    on both ranks), against the same step replicated."""
+    from event_representation_study_tpu_torch.parallel.mesh import make_mesh
+    from event_representation_study_tpu_torch.parallel.tensor_parallel import (
+        count_tp_sharded, shard_state_tp)
+    from event_representation_study_tpu_torch.parallel.train_step import make_train_step
+
+    mesh = make_mesh(axis_names=("data", "model"), shape=(1, world), device=dev)
+    whole, _ = _ddp_batches()
+    kw = dict(representation="OptimizedRepresentation", rep_hw=(H, W), img_size=DDP_IMG,
+              warp_impl="separable", device=dev)
+    epoch = 5  # TAL
+    ref, _, small = _small_state(dev)
+    p0 = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    first = next(iter(p0))
+    ref, ref_parts = make_train_step(loss_config(small), **kw)(ref, whole, epoch)
+    state, _, _ = _small_state(dev)
+    state = shard_state_tp(state, mesh)
+    counts = {"params": count_tp_sharded(state.model), "momentum": count_tp_sharded(state.opt_state),
+              "ema": count_tp_sharded(state.ema.variables)}
+    step = make_train_step(loss_config(small), group=mesh.group("data"), **kw)
+    (state, parts), launches = _counted(lambda: step(state, whole, epoch))
+    # each leaf's update: this rank's rows of a sharded one, all of another
+    deltas, ref_deltas = {}, {}
+    for n, p in state.model.named_parameters():
+        k = p.shape[0]
+        rows = slice(rank * k, (rank + 1) * k) if getattr(p, "tp_axis", None) else slice(None)
+        deltas[n] = (p.detach() - p0[n][rows]).cpu()
+        ref_deltas[n] = (ref.model.get_parameter(n).detach()[rows] - p0[n][rows]).cpu()
+    w0 = p0[first]
+    ms = _timed_steps(step, state, whole, epoch)
+    return {"counts": counts, "counts_after": {"params": count_tp_sharded(state.model),
+                                               "momentum": count_tp_sharded(state.opt_state)},
+            "loss": parts["loss"].item(), "ref_loss": ref_parts["loss"].item(),
+            "first_leaf": first, "first_leaf_sharded": deltas[first].shape[0] < w0.shape[0],
+            "first_leaf_abs_err": (deltas[first] - ref_deltas[first]).abs().max().item(),
+            # the stem's update over its weights' scale: weight decay alone gives ~1e-6
+            "first_leaf_update_rel": (ref_deltas[first].abs().max() / w0.abs().max()).item(),
+            "updates_leaf_scale": leaf_error(deltas, ref_deltas),
+            "ms": ms, "launches": launches}
+
+
+def _tree(fn, x):
+    """``fn`` over every tensor or array leaf of nested dicts, lists and
+    tuples."""
+    if isinstance(x, dict):
+        return {k: _tree(fn, v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(fn, v) for v in x)
+    return fn(x) if isinstance(x, (torch.Tensor, np.ndarray)) else x
+
+
+def parallel_worker(rank: int, world: int, port: int, queue, device: str = "cuda") -> None:
+    """One gloo rank on the card (``cuda:0``, shared): the event-shard, the
+    data-parallel and the tensor-parallel parts; puts (rank, results) or
+    (rank, the traceback)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from event_representation_study_tpu_torch.parallel.dist import init_distributed
+
+        init_distributed(f"127.0.0.1:{port}", world, rank, device=device, backend="gloo",
+                         timeout=datetime.timedelta(seconds=300))
+        dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+               else torch.device(device))
+        out = {}
+        for name, part in (("event_shard", _event_shard_part), ("ddp", _ddp_part),
+                           ("tp", _tp_part)):
+            t = time.perf_counter()
+            out[name] = part(rank, world, dev)
+            out[name]["part_s"] = time.perf_counter() - t
+        # host arrays: a tensor would travel as a handle to this process's memory
+        queue.put((rank, _tree(lambda a: a.detach().cpu().numpy(), out)))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def parallel_phases(dev):
+    """``parallel_event_shard``, ``parallel_ddp`` and ``parallel_tp``: 2
+    gloo processes sharing the card, spawned once, each part checked here.
+    Returns {phase: {kernel: launches summed over the ranks}} of the
+    sharded calls and of the group steps (not of their references)."""
+    import multiprocessing
+    import queue as queue_mod
+
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=parallel_worker, args=(r, PARALLEL_WORLD, port, q, dev.type))
+             for r in range(PARALLEL_WORLD)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:  # drain before joining
+            rank, res = q.get(timeout=600)
+            results[rank] = res
+    except queue_mod.Empty:
+        raise AssertionError(f"the parallel ranks gave {len(results)} results in 600 s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall_s = time.perf_counter() - t0
+    for rank, res in results.items():
+        require(isinstance(res, dict), f"parallel rank {rank} failed:\n{res}")
+    ranks = [results[r] for r in range(PARALLEL_WORLD)]
+
+    def total(part):
+        return {k: sum(r[part]["launches"][k] for r in ranks) for k in ("K1", "K2", "K3")}
+
+    # event-axis sharding: every representation against the unsharded card result
+    shard = {name: [r["event_shard"][name] for r in ranks] for name in ranks[0]["event_shard"]
+             if isinstance(ranks[0]["event_shard"][name], dict)}
+    want_launches = {"ergo12": ("K1", 1), "time_surface": ("K1", 1), "mdes_sum_only": ("K2", 1),
+                     "histogram": ("K2", 1), "voxel_grid": ("K2", 1), "tore": (None, 0)}
+    say("parallel_event_shard", ranks=PARALLEL_WORLD, backend="gloo", device="cuda:0 shared",
+        local_block=ranks[0]["event_shard"]["local_events"], batch=B, events_per_window=N,
+        reps={name: {"shape": v[0]["shape"], "errors": [x["errors"] for x in v],
+                     "launches": [x["launches"] for x in v], "ms": [x["ms"] for x in v]}
+              for name, v in shard.items()},
+        part_s=[r["event_shard"]["part_s"] for r in ranks], tolerance=EVENT_SHARD_TOLERANCE)
+    for name, v in shard.items():
+        kernel, n = want_launches[name]
+        for rank, x in enumerate(v):
+            require(x["ok"] and x["finite"], f"{name} rank {rank}: {x['errors']}")
+            want = {k: (n if k == kernel else 0) for k in ("K1", "K2", "K3")}
+            require(x["launches"] == want, f"{name} rank {rank}: launches {x['launches']}")
+
+    # the data-parallel step against the one-process step on the whole batch
+    ref, got = (_tree(torch.from_numpy, ranks[0]["ddp"][k]) for k in ("reference", "group"))
+    errs = step_errors(got, ref)
+    bn_err = max((got["bn"][k] - ref["bn"][k]).abs().max().item()
+                 / max(1.0, ref["bn"][k].abs().max().item()) for k in ref["bn"])
+    say("parallel_ddp", ranks=PARALLEL_WORLD, img=DDP_IMG, batch=DDP_B,
+        positives_per_rank=[r["ddp"]["rank_positives"] for r in ranks],
+        parts_group=got["parts"], parts_reference=ref["parts"],
+        errors={"loss_rel": errs["loss_rel"], "grads": errs["grads"], "updates": errs["updates"],
+                "bn_stats_rel": bn_err},
+        ranks_bit_equal=len({r["ddp"]["digest"] for r in ranks}) == 1,
+        step_ms=[r["ddp"]["ms"] for r in ranks],
+        step_ms_median=statistics.median(ms for r in ranks for ms in r["ddp"]["ms"]),
+        launches=[r["ddp"]["launches"] for r in ranks],
+        part_s=[r["ddp"]["part_s"] for r in ranks],
+        tolerance="loss 1e-4 relative; gradients and updates 2e-2 of leaf scale; BN running "
+                  "statistics 1e-5 of max(1, the leaf's largest); positive anchors equal; "
+                  "ranks bit-equal")
+    require(ranks[1]["ddp"]["rank_positives"] == 0 < ranks[0]["ddp"]["rank_positives"],
+            "rank 1 must hold no box")
+    require(got["parts"]["num_pos"] == ref["parts"]["num_pos"] > 0,
+            f"positive anchors {got['parts']['num_pos']} vs {ref['parts']['num_pos']}")
+    require(errs["loss_rel"] <= 1e-4 and errs["grads"][0] <= 2e-2 and errs["updates"][0] <= 2e-2
+            and bn_err <= 1e-5, f"data-parallel step vs the whole batch's: {errs}, BN {bn_err}")
+    require(len({r["ddp"]["digest"] for r in ranks}) == 1, "the ranks' states differ")
+    require(all(r["ddp"]["launches"] == {"K1": 1, "K2": 0, "K3": 2} for r in ranks),
+            f"data-parallel step launches {[r['ddp']['launches'] for r in ranks]}")
+
+    # tensor parallelism against the replicated step
+    tp = [r["tp"] for r in ranks]
+    say("parallel_tp", ranks=PARALLEL_WORLD, img=DDP_IMG, batch=DDP_B,
+        **{k: [x[k] for x in tp] for k in ("counts", "counts_after", "loss", "ref_loss",
+                                            "first_leaf_abs_err", "first_leaf_update_rel",
+                                            "updates_leaf_scale", "ms", "launches", "part_s")},
+        first_leaf=tp[0]["first_leaf"], parallel_wall_s=wall_s,
+        step_ms_median=statistics.median(ms for x in tp for ms in x["ms"]),
+        regime="random pred convs (gradients reach every layer), the optimizer past its "
+               "warmup, epoch 5 (TAL)",
+        tolerance="loss 2e-4 relative; every leaf's update 2e-2 of leaf scale; the first "
+                  "leaf (the stem) sharded and its update over 1e-3 of its weights' scale")
+    for rank, x in enumerate(tp):
+        require(min(x["counts"].values()) > 10 and x["counts_after"]["params"] > 10
+                and x["counts_after"]["momentum"] > 10, f"tp rank {rank}: counts {x['counts']}")
+        require(abs(x["loss"] - x["ref_loss"]) <= 2e-4 * abs(x["ref_loss"]),
+                f"tp rank {rank}: loss {x['loss']} vs {x['ref_loss']}")
+        require(x["first_leaf_sharded"] and x["first_leaf_update_rel"] > 1e-3
+                and x["updates_leaf_scale"][0] <= 2e-2,
+                f"tp rank {rank}: first leaf update {x['first_leaf_update_rel']} of its scale, "
+                f"updates {x['updates_leaf_scale']}")
+        require(x["launches"] == {"K1": 1, "K2": 0, "K3": 2}, f"tp rank {rank}: {x['launches']}")
+    return {"parallel_event_shard": {k: sum(x["launches"][k] for v in shard.values() for x in v)
+                                     for k in ("K1", "K2", "K3")},
+            "parallel_ddp": total("ddp"), "parallel_tp": total("tp")}
+
+
 def env_phase():
     """Which optional packages import on this machine (a report only: no
     phase depends on it)."""
@@ -4025,6 +4567,11 @@ def main() -> int:
     k3_img_args, img_launches = images_phase(dev)
     k3_img = check_k3(k3_img_args, "kernel_K3_images")
     del k3_img_args
+    # 27-30. the parallel layer: the Trainer through NCCL as a world of one,
+    # then 2 gloo ranks sharing the card (event sharding, data and tensor
+    # parallel steps)
+    ddp_k1, ddp_k3 = trainer_ddp_phase(dev)
+    par = parallel_phases(dev)
 
     rep_k1, rep_k2 = (sum(c[k] for c in rep_launches.values()) for k in (fs.K1, fs.K2))
     k1["launches_by_path"] = {"serve": launches[fs.K1], "train": train_launches[fs.K1],
@@ -4039,10 +4586,13 @@ def main() -> int:
                               "bf16_train": bf16_launches[fs.K1],
                               "images_save_img": img_launches["save_img_k1"],
                               "images_torch_convert": img_launches["convert_k1"],
-                              "images_plots": img_launches["plots_k1"]}
+                              "images_plots": img_launches["plots_k1"],
+                              "trainer_ddp": ddp_k1,
+                              **{name: n["K1"] for name, n in par.items()}}
     k2["launches_by_path"] = {"mdes_sum_only": launches_sum_only[fs.K2],
                               "representations": rep_k2, "gwd": gwd_launches[fs.K2],
-                              "search": search_launches[fs.K2]}
+                              "search": search_launches[fs.K2],
+                              "parallel_event_shard": par["parallel_event_shard"]["K2"]}
     for entry in (k1, k2):
         entry["launches"] = sum(entry["launches_by_path"].values())
     # the main figures stay those of the serve shape; the new shapes beside them
@@ -4068,14 +4618,16 @@ def main() -> int:
                               "zoo": sum(r["launches"] for r in zoo_rolls.values()),
                               **variant_k3, "gen4": gen4_k3, "multi_step": multi_k3,
                               "bf16_train": bf16_launches["roll_rows"],
-                              "images": img_launches["step"] + img_launches["trainer"]}
+                              "images": img_launches["step"] + img_launches["trainer"],
+                              "trainer_ddp": ddp_k3, "parallel_ddp": par["parallel_ddp"]["K3"],
+                              "parallel_tp": par["parallel_tp"]["K3"]}
     k3["launches"] = sum(k3["launches_by_path"].values())
     # the main figures stay those of the paper step (640²); each other shape
     # of the zoo's steps beside them, held in zoo_phase
     k3["by_shape"] = {"train_640": {
         **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "max_abs_err")},
-        "launches": train_launches["roll_rows"] + multi_k3 + zoo_rolls.get(
+        "launches": train_launches["roll_rows"] + multi_k3 + ddp_k3 + zoo_rolls.get(
             train_rolls, {}).get("launches", 0)},
         # the bf16 step's rolls: the same shapes, 2-byte elements
         "train_640_bf16": {

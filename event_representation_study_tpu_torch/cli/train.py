@@ -18,10 +18,17 @@ TensorBoard and wandb writers. ``--plot-images`` writes the train-batch
 and validation mosaics (``train_batch.png``, ``val_pred.png``; needs
 matplotlib). ``--override data.type=images`` trains on an image folder
 (``<data-path>/images/{train,val}`` with YOLO labels under ``labels/``).
+
+Several processes train one model data parallel when ``WORLD_SIZE`` or
+``COORDINATOR_ADDRESS`` is set (``torchrun --nproc-per-node N -m
+event_representation_study_tpu_torch.cli.train ...``, or ``RANK`` /
+``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT`` by hand): NCCL on the
+card, gloo with ``--device cpu``; ``--batch-size`` is each rank's.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import time
 
@@ -113,6 +120,25 @@ def main(args=None):
     args = parser.parse_args(args)
     if args.calib and not args.quant:
         parser.error("--calib requires --quant")
+    import torch.distributed as dist
+
+    joined = False
+    if (os.environ.get("WORLD_SIZE") or os.environ.get("COORDINATOR_ADDRESS")) \
+            and not dist.is_initialized():
+        # train.py:244-253's init_process_group, before any work on the device
+        from ..parallel.dist import init_distributed
+
+        rank, world = init_distributed(device=args.device)
+        joined = dist.is_initialized()
+        print(f"distributed: process {rank}/{world}", flush=True)
+    try:
+        return _run(args, t_main)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(args, t_main):
     from ..train.checkpoint import restore_train_state
     from ..train.engine import Trainer
     from ..utils.config import load_config

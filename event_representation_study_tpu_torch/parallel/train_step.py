@@ -1,5 +1,5 @@
-"""Training and eval steps (the JAX package's ``parallel/train_step.py``,
-one device).
+"""Training and eval steps (the JAX package's ``parallel/train_step.py``):
+one device, or this rank's part of a data-parallel step (below).
 
 One step: raw padded events -> the augmented model input -> /255 ->
 detector in train mode -> ATSS/TAL assignment -> VFL + GIoU + DFL loss ->
@@ -41,6 +41,29 @@ float32.
 :func:`make_multi_train_step` runs K steps a call on a batch stacked by
 :func:`stack_batches` (the JAX package's ``lax.scan`` dispatch), with the
 EMA blended every step or once a call.
+
+Data parallel (``group``, the process group of a mesh's "data" axis; M11):
+each rank steps on its share of the global batch, and the step computes
+the GLOBAL batch's step, as JAX's sharded jit does:
+- the loss normalisers are the global batch's (``train/losses.py``), so
+  each rank's loss is its share of the global loss;
+- the gradients are SUMMED over the group, in one all-reduce of a flat
+  buffer, before the optimizer: the sum of the shares' gradients is the
+  global gradient, with no ``loss * world_size`` factor;
+- with more than one rank, every BatchNorm (the teacher's too) normalises
+  by the global batch's statistics (``parallel/batch_norm.py``), and the
+  running statistics follow them, identically on every rank;
+- the returned parts are summed over the group: the global batch's loss;
+- on its first call with a model, the step copies rank 0's parameters,
+  buffers and EMA to every rank (what DDP does when it wraps a model).
+The step all-reduces the gradients itself rather than wrapping the model in
+``DistributedDataParallel``: the state keeps the bare module, whose names
+the optimizer, the EMA and the checkpoints key on; an unused parameter
+(none is, in any mode) has a zero gradient here, where DDP would need
+``find_unused_parameters``; the teacher is never wrapped; and DDP's
+averaging would need a world-size factor in the loss. Every rank's model
+updates identically, so the EMA of the bare module is the same on every
+rank.
 """
 from __future__ import annotations
 
@@ -50,6 +73,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import resolve_device
@@ -62,6 +86,8 @@ from ..reps.event_mosaic import mosaic_event_rep, supports_event_mosaic
 from ..train.ema import EMAState, ema_init, ema_update, ema_update_k
 from ..train.losses import LossConfig, detection_loss
 from ..train.losses_variants import detection_loss_distill, detection_loss_fuseab
+from .batch_norm import convert_global_batch_norm
+from .dist import all_reduce, group_size
 
 
 @dataclasses.dataclass
@@ -175,6 +201,7 @@ def make_train_step(
     max_epoch: int = 300,
     temperature: float = 20.0,
     distill_feat: bool = False,
+    group=None,
 ):
     """Build ``train_step(state, batch, epoch) -> (state, parts)`` on
     ``device`` (``cuda`` unless the caller asks for ``cpu``). With
@@ -183,7 +210,9 @@ def make_train_step(
     ``mode``, ``teacher`` (the distillation teacher, a model on ``device``
     with its weights), ``max_epoch``, ``temperature`` and ``distill_feat``
     as the module docstring says. A bfloat16 model in the state takes the
-    bf16 step (module docstring).
+    bf16 step (module docstring). With ``group`` the step is this rank's
+    part of a data-parallel step over the group (module docstring); every
+    rank of the group calls it on its own batch of one shape.
 
     The returned function also carries the stages it composes
     (``rep_fn``, ``warp``, ``images_of``, ``loss_fn``, ``apply_update``),
@@ -199,6 +228,10 @@ def make_train_step(
     rep_fn = (batched_representation(representation, H, W)
               if representation and not learned else None)
     warp = compose_warp_separable if warp_impl == "separable" else compose_warp
+    global_bn = group_size(group) > 1
+    if teacher is not None and global_bn:
+        convert_global_batch_norm(teacher, group)
+    synced = []  # the model whose state was copied from rank 0
 
     @torch.no_grad()
     def images_of(batch: Batch, gather_dtype: Optional[torch.dtype] = None):
@@ -233,9 +266,10 @@ def make_train_step(
         gt = (batch.gt_labels, batch.gt_bboxes, batch.gt_mask)
         if mode == "fuseab":
             _, cls_ab, reg_ab, cls, reg = outputs
-            loss, parts = detection_loss((feats, cls, reg), *gt, feat_shapes, epoch, loss_cfg)
+            loss, parts = detection_loss((feats, cls, reg), *gt, feat_shapes, epoch, loss_cfg,
+                                         group=group)
             loss_ab, parts_ab = detection_loss_fuseab(cls_ab, reg_ab, *gt, feat_shapes,
-                                                      loss_cfg, na=model.head.na)
+                                                      loss_cfg, na=model.head.na, group=group)
             return loss + loss_ab, dict(parts, **parts_ab)
         if mode == "distill":
             # a distill_ns head adds the ltrb branch: (feats, cls, reg_lrtb, reg_dist)
@@ -247,21 +281,33 @@ def make_train_step(
                 feat_shapes, epoch, max_epoch,
                 loss_cfg._replace(warmup_epoch=0) if ns else loss_cfg,
                 temperature=temperature, distill_feat=distill_feat,
-                reg_lrtb=outputs[2] if ns else None)
-        return detection_loss(outputs, *gt, feat_shapes, epoch, loss_cfg)
+                reg_lrtb=outputs[2] if ns else None, group=group)
+        return detection_loss(outputs, *gt, feat_shapes, epoch, loss_cfg, group=group)
 
     def apply_update(state: TrainState) -> TrainState:
         """The optimizer step on the gradients left by ``backward``, then
         the EMA blend (on every call, microsteps included)."""
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in state.model.named_parameters()}
+        if group is not None:
+            grads = _summed(grads, group)
         state.opt_state.update(grads)
         if update_ema:
             state.ema = ema_update(state.ema, state.model)
         state.step += 1
         return state
 
+    def join(state: TrainState) -> None:
+        """Once per model: global BatchNorm, and rank 0's state everywhere."""
+        if group is None or (synced and synced[0] is state.model):
+            return
+        if global_bn:
+            convert_global_batch_norm(state.model, group)
+        _broadcast_state(state, group)
+        synced[:] = [state.model]
+
     def train_step(state: TrainState, batch: Batch, epoch: int):
+        join(state)
         batch = batch_on_device(batch, device)
         # a bf16 model: the warp's source in bf16 (JAX: _warp_gd)
         imgs = images_of(batch, torch.bfloat16 if _bf16(state.model) else None)
@@ -272,6 +318,10 @@ def make_train_step(
         state = apply_update(state)
         parts = {k: v.detach() for k, v in parts.items()}
         parts["loss"] = loss.detach()
+        if group is not None:  # the global batch's: the sum of the shares
+            keys = list(parts)
+            total = all_reduce(torch.stack([parts[k].float() for k in keys]), group)
+            parts = dict(zip(keys, total.unbind()))
         return state, parts
 
     train_step.device = device
@@ -321,6 +371,24 @@ def make_multi_train_step(loss_cfg: LossConfig, k: int, ema_cadence: str = "step
 
     multi_step.step = step
     return multi_step
+
+
+def _summed(grads: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The gradients summed over ``group`` in one all-reduce of a flat
+    float32 buffer; the returned tensors are views of it."""
+    names = list(grads)
+    flat = torch.cat([grads[n].reshape(-1).float() for n in names])
+    all_reduce(flat, group)
+    views = flat.split([grads[n].numel() for n in names])
+    return {n: v.view_as(grads[n]) for n, v in zip(names, views)}
+
+
+@torch.no_grad()
+def _broadcast_state(state: TrainState, group) -> None:
+    """Rank 0's parameters, buffers and EMA on every rank of ``group``."""
+    src = dist.get_global_rank(group, 0)
+    for t in [*state.model.state_dict().values(), *state.ema.variables.values()]:
+        dist.broadcast(t, src, group=group)
 
 
 @contextlib.contextmanager

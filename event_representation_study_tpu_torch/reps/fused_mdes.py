@@ -13,8 +13,11 @@ kernel's 32 sum or 16 max columns), then combines channels elementwise:
 
 Window membership and polarity selectors are recomputed from sorted event
 positions/polarities, so only (t, p) ride the sort. Port of the JAX
-package's ``reps/fused_mdes.py`` (without its event-axis sharding offset,
-ROADMAP M18).
+package's ``reps/fused_mdes.py``. :func:`mdes_partials` reduces a slice of
+a stream whose first event sits at ``pos_offset``: window membership and
+validity are judged against global positions, so summing the slices' sums
+and taking the max of their maxes gives the whole stream's columns (the
+event-axis sharding of ``parallel/event_shard.py``).
 """
 from __future__ import annotations
 
@@ -97,8 +100,10 @@ def _window_mask(w, pos, num, t_s, stacking):
     return valid & (pos >= start)
 
 
-def _mdes_columns(plan, num, t0, span, any_neg, stacking):
-    """The ``columns_fn`` of :func:`fused_segment_reduce` for a plan."""
+def _mdes_columns(plan, num, t0, span, any_neg, stacking, pos_offset: int = 0):
+    """The ``columns_fn`` of :func:`fused_segment_reduce` for a plan.
+    ``pos_offset`` maps the sorted local positions to global stream
+    positions (0 for a whole stream)."""
     sum_cols, max_cols, _ = plan
 
     def selector(f, w, p, wmask):
@@ -121,9 +126,11 @@ def _mdes_columns(plan, num, t0, span, any_neg, stacking):
         p_i = p_sorted.to(torch.int32)
         wmasks = {}
 
+        gpos = pos_s + pos_offset if pos_offset else pos_s
+
         def wm(w):
             if w not in wmasks:
-                wmasks[w] = _window_mask(w, pos_s, num, t_s, stacking)
+                wmasks[w] = _window_mask(w, gpos, num, t_s, stacking)
             return wmasks[w]
 
         vs = []
@@ -152,14 +159,19 @@ def _mdes_columns(plan, num, t0, span, any_neg, stacking):
 
 
 def mdes_partials(x, y, t, p, num, height: int, width: int, plan, stacking: str,
-                  t0, span, any_neg):
-    """(sums (B, S, Ks), maxes (B, S, Km) | None) from one fused reduction."""
+                  t0, span, any_neg, pos_offset: int = 0):
+    """(sums (B, S, Ks), maxes (B, S, Km) | None) from one fused reduction.
+
+    The (B, N) leaves may be a slice of each stream whose first event has
+    global position ``pos_offset``; ``num``, ``t0``, ``span`` and
+    ``any_neg`` are the whole stream's. Summing the sums and taking the max
+    of the maxes over the slices of a stream gives its unsliced result."""
     B, N = x.shape
     S = height * width
     pos = torch.arange(N, dtype=torch.int32, device=x.device).expand(B, N)
-    valid = pos < num[:, None]
+    valid = (pos + pos_offset if pos_offset else pos) < num[:, None]
     seg = torch.where(valid, y.to(torch.int32) * width + x.to(torch.int32), S)
-    columns_fn = _mdes_columns(plan, num, t0, span, any_neg, stacking)
+    columns_fn = _mdes_columns(plan, num, t0, span, any_neg, stacking, pos_offset)
     return fused_segment_reduce(
         seg.to(torch.int32), (t.to(torch.float32), p.to(torch.int32)),
         columns_fn, S,
@@ -168,7 +180,8 @@ def mdes_partials(x, y, t, p, num, height: int, width: int, plan, stacking: str,
 
 def mdes_window_any_neg(p, pos, num, t_s, stacking: str):
     """(B, n_windows) bool: the window holds a p == -1 event — the input of
-    the p == 0 fallback selector."""
+    the p == 0 fallback selector. ``pos`` are global positions; over the
+    slices of a stream, OR the flags."""
     n_windows = 8 if stacking == "SBT" else 7
     p_i = p.to(torch.int32)
     return torch.stack(

@@ -33,6 +33,16 @@ through the per-batch step, which blends the EMA itself. Metrics go to
 ``metrics.jsonl`` and, with the config's ``use_tensorboard`` /
 ``use_wandb``, to TensorBoard event files and a wandb run
 (``utils/observability.py``).
+
+In a process group (``parallel/dist.py::init_distributed``, which
+``cli/train.py`` calls under ``torchrun`` or the launcher's variables) the
+Trainer is data parallel, as the JAX Trainer over its mesh: each rank loads
+its own stripe of the training set (``shard_id=rank, num_shards=world``;
+``batch_size`` rows a rank, so the global batch is ``world * batch_size``),
+and the step is the global batch's step over the mesh's "data" group
+(``parallel/train_step.py``). Each rank evaluates the whole validation
+split; only rank 0 writes checkpoints, metrics and plots. The loader's
+batches reach the device through ``parallel/mesh.py::device_prefetch``.
 """
 from __future__ import annotations
 
@@ -40,7 +50,6 @@ import pathlib
 import time
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from .. import resolve_device
@@ -50,6 +59,8 @@ from ..data.loader import EventBatchLoader
 from ..models import build_model
 from ..models.yolo import init_weights_
 from ..ops.warp import separable_hyp_eligible
+from ..parallel.dist import group_rank
+from ..parallel.mesh import device_prefetch, make_mesh
 from ..parallel.train_step import (
     LEARNED,
     init_train_state,
@@ -134,6 +145,11 @@ class Trainer:
         self.eval_interval = eval_interval
         self.eval_interval_first = eval_interval_first
         self.stop_aug_last_n_epoch = stop_aug_last_n_epoch
+        # a process group makes the run data parallel over every rank
+        self.mesh = make_mesh(device=self.device)
+        group = self.mesh.group("data")
+        self.rank, world = group_rank(group), self.mesh.size("data")
+        shard = dict(shard_id=self.rank, num_shards=world)
 
         nc = data.get("num_classes", 2)
         ne = num_events or data.get("num_events", 50000)
@@ -152,7 +168,7 @@ class Trainer:
             self.train_loader = ImageBatchLoader(
                 self.train_ds, batch_size, img_size=img_size, shuffle=True, seed=seed,
                 hyp=dict(aug) if augment else None,
-                partner_pool=partner_pool if augment else 0)
+                partner_pool=partner_pool if augment else 0, **shard)
             self.val_loader = ImageBatchLoader(self.val_ds, batch_size, img_size=img_size,
                                                shuffle=False, drop_last=False)
         else:
@@ -163,7 +179,7 @@ class Trainer:
                 flipud=aug.get("flipud", 0.0), fliplr=aug.get("fliplr", 0.0),
                 hyp=dict(aug) if augment else None,
                 # dataset-wide mosaic/mixup partner draws (0 = in-batch)
-                partner_pool=partner_pool if augment else 0,
+                partner_pool=partner_pool if augment else 0, **shard,
             )
             self.val_loader = EventBatchLoader(self.val_ds, batch_size, img_size=img_size,
                                                shuffle=False, drop_last=False)
@@ -245,7 +261,7 @@ class Trainer:
             rep_hw=(self.train_ds.height, self.train_ds.width), img_size=img_size,
             mode=self.train_mode, aug_mode=aug_mode, warp_impl=warp_impl, device=self.device,
             teacher=self.teacher, max_epoch=epochs, temperature=temperature,
-            distill_feat=distill_feat,
+            distill_feat=distill_feat, group=group,
         )
         self.train_step = make_train_step(self.loss_cfg, **step_kwargs)
         # K steps a call; 1 = the per-batch step alone
@@ -273,9 +289,9 @@ class Trainer:
             self.output_dir, config={"representation": self.representation},
             use_wandb=bool(cfg.get("use_wandb")),
             use_tensorboard=bool(cfg.get("use_tensorboard")),
-        )
+        ) if self.rank == 0 else MultiWriter([])
         self.log_interval = 200  # loss every 200 steps (engine.py:264-265)
-        self.plot_images = plot_images
+        self.plot_images = plot_images and self.rank == 0
         self._plotted_train_batch = False
 
     def should_eval(self, epoch: int) -> bool:
@@ -324,6 +340,8 @@ class Trainer:
         qstate, _ = quantize_params(self.model, skip=skip)
         stats = self.evaler.run(fake_quant_params(self.model, skip=skip))
         LOGGER.info("PTQ calibrated: %d activation ranges, eval %s", len(ranges), stats)
+        if self.rank != 0:
+            return ranges, stats
         save_quantized_checkpoint(self.output_dir / "ptq_ckpt", qstate, extra={
             "activation_ranges": ranges,
             "metrics": {k: float(v) for k, v in stats.items() if isinstance(v, (int, float))}})
@@ -355,7 +373,7 @@ class Trainer:
     def _train_epoch(self, epoch: int):
         """The per-batch epoch; returns the last step's parts."""
         parts = None
-        for batch, _ in self.train_loader:
+        for batch, _ in device_prefetch(self.train_loader, self.mesh):
             if (self.plot_images and not self._plotted_train_batch
                     and self.evaler._images is not None):
                 self._plot_train_batch(batch)
@@ -373,8 +391,8 @@ class Trainer:
         from ..utils.viz import plot_train_batch
 
         imgs = self.evaler._images(batch.events)[: batch.gt_labels.shape[0]]
-        plot_train_batch(imgs.cpu().numpy(), np.asarray(batch.gt_bboxes),
-                         np.asarray(batch.gt_mask),
+        plot_train_batch(imgs.cpu().numpy(), torch.as_tensor(batch.gt_bboxes).cpu().numpy(),
+                         torch.as_tensor(batch.gt_mask).cpu().numpy(),
                          path=str(self.output_dir / "train_batch.png"))
         self._plotted_train_batch = True
 
@@ -385,7 +403,7 @@ class Trainer:
         the JAX Trainer. Returns the last step's parts."""
         k = self.steps_per_dispatch
         group, parts = [], None
-        for batch, _ in self.train_loader:
+        for batch, _ in device_prefetch(self.train_loader, self.mesh):
             group.append(batch)
             if len(group) < k:
                 continue
@@ -403,8 +421,11 @@ class Trainer:
                                 plot_dir=str(self.output_dir) if self.plot_images else None)
         self.writer.log({f"val/{k}": v for k, v in stats.items()
                          if isinstance(v, (int, float))}, self.state.step)
-        save_checkpoint(self.output_dir / "last_ckpt", self.state, epoch)
-        if stats.get("AP", -1) > self.best_ap:
+        better = stats.get("AP", -1) > self.best_ap
+        if better:
             self.best_ap = stats["AP"]
-            save_checkpoint(self.output_dir / "best_ckpt", self.state, epoch)
+        if self.rank == 0:
+            save_checkpoint(self.output_dir / "last_ckpt", self.state, epoch)
+            if better:
+                save_checkpoint(self.output_dir / "best_ckpt", self.state, epoch)
         return stats

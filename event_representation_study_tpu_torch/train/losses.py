@@ -6,6 +6,17 @@ with ATSS assignment before ``warmup_epoch`` and TAL after it.
 Targets are fixed-capacity padded per image: ``gt_labels (B, M)``,
 ``gt_bboxes (B, M, 4)`` xyxy image pixels, ``gt_mask (B, M)``; positives
 enter as mask-weighted dense sums.
+
+Under a data-parallel step (``group``: the process group of the "data"
+mesh axis) each rank holds its share of the batch. The terms are sums over
+the batch divided by the target-score sum, and JAX's sharded step divides
+by the GLOBAL batch's. So the normaliser is all-reduced first (it carries
+no gradient), and each rank's loss is its local sum over the global
+normaliser: its share of the global loss. The step SUMS the ranks'
+gradients (``parallel/train_step.py``), which gives the global batch's
+gradient exactly; there is no ``loss * world_size`` factor, which the
+reference needs only because DDP averages. The loss and parts a rank
+returns are its shares; their sum over the ranks is the global batch's.
 """
 from __future__ import annotations
 
@@ -15,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import bbox2dist, dist2bbox, iou_loss
+from ..parallel.dist import global_sum
 from .anchors import generate_anchors_train
 from .assigners import atss_assigner, task_aligned_assigner
 
@@ -88,9 +100,11 @@ def detection_loss(
     epoch: int,
     cfg: LossConfig,
     return_aux: bool = False,
+    group=None,
 ):
     """``(loss, parts)``, and the :class:`LossAux` third with
-    ``return_aux``."""
+    ``return_aux``. With ``group`` the normaliser is the global batch's
+    (module docstring)."""
     _, pred_scores, pred_distri = outputs
     dev = pred_scores.device
     anchors, anchor_points, n_anchors_list, stride_tensor = generate_anchors_train(
@@ -121,7 +135,7 @@ def detection_loss(
     tl = torch.where(fg_mask, target_labels, cfg.num_classes)
     one_hot = F.one_hot(tl, cfg.num_classes + 1)[..., : cfg.num_classes].to(pred_scores.dtype)
     loss_cls = varifocal_loss(pred_scores, target_scores, one_hot)
-    tss = target_scores.sum()
+    tss = global_sum(target_scores.sum(), group)
     denom = torch.where(tss > 1, tss, 1.0)  # normalisation guard
     loss_cls = loss_cls / denom
 

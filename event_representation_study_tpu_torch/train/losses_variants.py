@@ -12,6 +12,14 @@
 
 Feature maps are NCHW here; the JAX package's are NHWC. Either way
 :func:`kd_cw_loss` takes a softmax over each channel's H * W positions.
+
+Under a data-parallel step (``group``) every term must be the rank's share
+of the global batch's term, since the step sums the ranks' gradients
+(``train/losses.py``): a batch sum over a batch statistic divides by the
+statistic's global value (the target-score sums; the positive count and
+target-weight sum of :func:`kd_dfl_loss`; the images of :func:`kd_cw_loss`,
+a mean over the batch), and a plain sum (:func:`kd_cls_loss`) needs
+nothing.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.boxes import dist2bbox, iou_loss
+from ..parallel.dist import global_sum
 from .anchors import generate_anchors_train
 from .assigners import task_aligned_assigner
 from .losses import LossConfig, detection_loss, varifocal_loss
@@ -44,6 +53,7 @@ def detection_loss_fuseab(
     cfg: LossConfig,
     na: int = 1,
     tal_topk: int = 26,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The anchor-base branch loss. The head flattens each level anchor by
     anchor, so each level's points are tiled na times ([pts; pts; pts]), not
@@ -72,7 +82,7 @@ def detection_loss_fuseab(
 
     tl = torch.where(fg_mask, target_labels, cfg.num_classes)
     one_hot = F.one_hot(tl, cfg.num_classes + 1)[..., : cfg.num_classes].to(cls_ab.dtype)
-    tss = target_scores.sum()
+    tss = global_sum(target_scores.sum(), group)
     denom = torch.where(tss > 1, tss, 1.0)
     loss_cls = varifocal_loss(cls_ab, target_scores, one_hot) / denom
     bbox_weight = target_scores.sum(-1) * fg_mask
@@ -106,29 +116,35 @@ def kd_cls_loss(s_scores, t_scores, temperature):
     return _kl(p_t, log_p_s).sum() * temperature ** 2
 
 
-def kd_dfl_loss(s_dist, t_dist, fg_mask, bbox_weight, denom, reg_max: int, temperature):
+def kd_dfl_loss(s_dist, t_dist, fg_mask, bbox_weight, denom, reg_max: int, temperature,
+                group=None):
     """The bin KL x T^2 of the DFL distributions, its mean over the positive
     anchors and 4 sides, weighted by the positives' target-score sum over
-    ``denom``."""
+    ``denom`` (the global one under ``group``, as the positive count and
+    the weight sum are made here)."""
     b, a, _ = s_dist.shape
     log_p_s = F.log_softmax(s_dist.reshape(b, a, 4, reg_max + 1) / temperature, dim=-1)
     p_t = F.softmax(t_dist.detach().reshape(b, a, 4, reg_max + 1) / temperature, dim=-1)
     kl = _kl(p_t, log_p_s).sum(-1)  # (B, A, 4)
     fg = fg_mask.to(torch.float32)
-    n_pos = fg.sum().clamp_min(1.0)
+    n_pos = global_sum(fg.sum(), group).clamp_min(1.0)
     scalar = (kl.mean(-1) * fg).sum() / n_pos * temperature ** 2
-    return scalar * bbox_weight.sum() / denom
+    return scalar * global_sum(bbox_weight.sum(), group) / denom
 
 
-def kd_cw_loss(s_feats, t_feats, temperature: float = 1.0):
+def kd_cw_loss(s_feats, t_feats, temperature: float = 1.0, group=None):
     """Channel-wise feature KD on the first three levels: per (image,
     channel) a softmax over the H * W positions, KL(student || teacher as
-    log target) summed, over (B * C), times T^2."""
+    log target) summed, over (B * C), times T^2; B is the global batch's
+    image count under ``group``."""
     total = torch.zeros((), device=s_feats[0].device)
+    b = s_feats[0].shape[0]
+    if group is not None:  # the global image count, kept on the device
+        b = global_sum(torch.tensor(float(b), device=total.device), group)
     for s, t in zip(s_feats[:3], t_feats[:3]):
-        b, c, h, w = s.shape
-        log_p_s = F.log_softmax(s.reshape(b, c, h * w) / temperature, dim=-1)
-        log_p_t = F.log_softmax(t.detach().reshape(b, c, h * w) / temperature, dim=-1)
+        _, c, h, w = s.shape
+        log_p_s = F.log_softmax(s.reshape(-1, c, h * w) / temperature, dim=-1)
+        log_p_t = F.log_softmax(t.detach().reshape(-1, c, h * w) / temperature, dim=-1)
         kl = (log_p_t.exp() * (log_p_t - log_p_s)).sum()
         total = total + kl * temperature ** 2 / (b * c)
     return total
@@ -150,14 +166,16 @@ def detection_loss_distill(
     distill_weight_class: float = 1.0,
     distill_weight_dfl: float = 1.0,
     reg_lrtb=None,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """class (cls + dw d_cls) + iou iou + dfl (dfl + dw d_dfl) + cwd dw d_cw,
     dw the decay of :func:`distill_weight_decay`. ``reg_lrtb`` (B, A, 4),
     the student's direct box branch, adds a second IoU term on the same
     assignment (the nano/small variant; callers pass ``warmup_epoch=0``,
-    as that variant always assigns by TAL)."""
+    as that variant always assigns by TAL). ``group`` as the module
+    docstring says."""
     _, parts, aux = detection_loss(student_outputs, gt_labels, gt_bboxes, gt_mask, feat_shapes,
-                                   epoch, cfg, return_aux=True)
+                                   epoch, cfg, return_aux=True, group=group)
     raw_iou = aux.raw_iou
     if reg_lrtb is not None:
         _, anchor_points, _, stride_tensor = generate_anchors_train(
@@ -171,8 +189,8 @@ def detection_loss_distill(
     dw = distill_weight_decay(epoch, max_epoch).to(s_cls.device)
     d_cls = kd_cls_loss(s_cls, t_cls, temperature) * dw
     d_dfl = (kd_dfl_loss(s_dist, t_dist, aux.fg_mask, aux.bbox_weight, aux.denom, cfg.reg_max,
-                         temperature) if cfg.use_dfl else zero) * dw
-    d_cw = (kd_cw_loss(s_feats, t_feats) if distill_feat else zero) * dw
+                         temperature, group) if cfg.use_dfl else zero) * dw
+    d_cw = (kd_cw_loss(s_feats, t_feats, group=group) if distill_feat else zero) * dw
     loss_cls_all = aux.raw_cls + d_cls * distill_weight_class
     loss_dfl_all = aux.raw_dfl + d_dfl * distill_weight_dfl
     loss = (cfg.weight_class * loss_cls_all + cfg.weight_iou * raw_iou

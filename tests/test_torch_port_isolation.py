@@ -20,8 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "event_representation_study_tpu")
 # event windows, the N-ImageNet classification, the detector zoo, the
 # training variants and deploy tools, the 1 Mpx data with the event-file
 # tools, the metrics writers' and utilities' own copies, and the image data,
-# demo inputs, plots and reference-checkpoint import, imported in the probe
-# too
+# demo inputs, plots and reference-checkpoint import, and the parallel layer,
+# imported in the probe too
 NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_stack",
                "reps.time_surface", "reps.tore", "reps.mdes", "reps.fused_reps",
                "metrics.chosen_indexes", "metrics.gw", "metrics.gw_exact", "metrics.otmi",
@@ -35,7 +35,9 @@ NEW_MODULES = ("ops.scatter", "reps.histogram", "reps.voxel_grid", "reps.event_s
                "utils.export", "events.prophesee", "events.filters", "events.rosbag",
                "data.gen4", "data.gen4_legacy", "cli.consolidate", "cli.convert",
                "cli.precompute_reps", "utils.tb_native", "utils.profiling", "utils.tasks",
-               "data.image_dataset", "data.demo_data", "utils.viz", "utils.torch_convert")
+               "data.image_dataset", "data.demo_data", "utils.viz", "utils.torch_convert",
+               "parallel.dist", "parallel.mesh", "parallel.batch_norm", "parallel.event_shard",
+               "parallel.tensor_parallel")
 
 _PROBE = """
 import importlib, json, pkgutil, sys

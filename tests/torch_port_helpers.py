@@ -768,3 +768,79 @@ def jax_image_step(jax_model, loss_kw, variables, batch_j):
         update_ema=False)
     new_j, parts_j = step_j(state_j, batch_j, c["EPOCH"])
     return jax_leaves(new_j.opt_state[1], "params"), {k: float(v) for k, v in parts_j.items()}
+
+
+# -- process groups (tests/test_torch_port_{event_shard,dist,ddp_step,tensor_parallel}.py) --
+
+GROUP_TIMEOUT_S = 600  # a spawned group's whole run, start to results, under a loaded lane
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _group_worker(fn, rank, world, port, join, queue, kwargs):
+    """One rank: torch on one thread, a gloo group over ``tcp://`` through
+    the port's ``init_distributed`` (unless ``join`` is false: then ``fn``
+    gets the free ``port`` to make its own), then ``fn(rank, world,
+    **kwargs)``; puts (rank, result) or (rank, the traceback)."""
+    import datetime
+    import traceback
+
+    try:
+        torch.set_num_threads(1)
+        from event_representation_study_tpu_torch.parallel.dist import init_distributed
+
+        if join:
+            got = init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu",
+                                   timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+            assert got == (rank, world), got
+        else:
+            kwargs = dict(kwargs, port=port)
+        queue.put((rank, fn(rank, world, **kwargs)))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+class SpawnedGroup:
+    """``world`` spawned processes, each a rank of a gloo group running
+    ``fn(rank, world, **kwargs)`` (``fn`` importable without JAX: a
+    module-level function of a test module whose JAX imports sit inside
+    its fixtures). Start it, do the JAX side meanwhile, then
+    :meth:`results` waits: the list of each rank's return value."""
+
+    def __init__(self, fn, world: int = 2, join: bool = True, **kwargs):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.queue = ctx.Queue()
+        port = free_port()
+        self.procs = [ctx.Process(target=_group_worker,
+                                  args=(fn, r, world, port, join, self.queue, kwargs))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def results(self):
+        import queue as queue_mod
+
+        out = {}
+        try:
+            for _ in self.procs:  # drain before joining
+                rank, res = self.queue.get(timeout=GROUP_TIMEOUT_S)
+                if isinstance(res, str) and res.startswith("Traceback"):
+                    raise AssertionError(f"rank {rank} failed:\n{res}")
+                out[rank] = res
+        except queue_mod.Empty:
+            raise AssertionError(f"the group gave no result in {GROUP_TIMEOUT_S} s") from None
+        finally:
+            for p in self.procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        return [out[r] for r in range(len(self.procs))]
