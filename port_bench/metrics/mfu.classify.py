@@ -1,0 +1,7 @@
+"""Model FLOPs of the classifier steps (forward x 3) over the traced window
+and the peak of the precision used."""
+from port_bench.readers import mfu_pct
+
+
+def read(run):
+    return mfu_pct(run, "flops_per_step", "steps")
