@@ -25,6 +25,7 @@ from ..events.core import EventBlock
 from ..ops.image import letterbox_labels
 from ..ops.warp import AugPlan
 from ..parallel.train_step import Batch
+from ..utils.profiling import count, span
 from .augment import apply_event_affine, plan_augment_batch, plan_event_affine
 from .gen1 import Gen1H5
 
@@ -233,7 +234,9 @@ class EventBatchLoader:
 def prefetched(make_batch, selections, depth: int = PREFETCH) -> Iterator:
     """``make_batch(sel)`` of each selection in order, assembled by a
     background thread up to ``depth`` batches ahead of the consumer; an
-    exception in the thread is raised to the consumer."""
+    exception in the thread is raised to the consumer. The consumer counts
+    its takes (``loader/takes``) and those that found the queue empty
+    (``loader/empty_takes``), and spans its wait on those (``loader/wait``)."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = object()
     # a consumer that abandons the iterator mid-epoch (early break,
@@ -264,7 +267,13 @@ def prefetched(make_batch, selections, depth: int = PREFETCH) -> Iterator:
     th.start()
     try:
         while True:
-            item = q.get()
+            try:
+                item = q.get_nowait()
+            except queue.Empty:  # the consumer waits on the worker
+                count("loader/empty_takes")
+                with span("loader/wait"):
+                    item = q.get()
+            count("loader/takes")
             if item is stop:
                 break
             if isinstance(item, Exception):

@@ -26,6 +26,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 SENSOR_H, SENSOR_W = 480, 640
 IMAGE_H, IMAGE_W = 224, 224
 
@@ -147,29 +149,29 @@ class NImageNetDataset:
         return LOADER_CHANNELS[self.loader_type]
 
     def _event_tensor(self, idx: int) -> np.ndarray:
-        raw = np.load(self.files[idx])["event_data"]
-        if raw.dtype.names:  # structured
-            ev = np.stack(
-                [raw["x"], raw["y"], raw["t"], raw["p"].astype(np.int32)], axis=-1
-            ).astype(np.float64)
-        else:
+        with span("nimagenet/decode"):
+            raw = np.load(self.files[idx])["event_data"]
+            if raw.dtype.names:  # structured
+                raw = np.stack([raw["x"], raw["y"], raw["t"], raw["p"].astype(np.int32)], axis=-1)
+        with span("nimagenet/prep"):
             ev = raw.astype(np.float64)
-        # polarity {0,1} -> {-1,1}
-        p = ev[:, 3]
-        ev[:, 3] = np.where(p > 0, 1, -1)
-        if self.reshape_method == "sample":
-            ev = reshape_event_with_sample(ev, SENSOR_H, SENSOR_W, IMAGE_H, IMAGE_W, self.rng)
-        elif self.reshape_method == "unique":
-            from .nimagenet_loaders import reshape_event_unique
+            # polarity {0,1} -> {-1,1}
+            p = ev[:, 3]
+            ev[:, 3] = np.where(p > 0, 1, -1)
+            if self.reshape_method == "sample":
+                ev = reshape_event_with_sample(ev, SENSOR_H, SENSOR_W, IMAGE_H, IMAGE_W,
+                                               self.rng)
+            elif self.reshape_method == "unique":
+                from .nimagenet_loaders import reshape_event_unique
 
-            ev = reshape_event_unique(ev, SENSOR_H, SENSOR_W, IMAGE_H, IMAGE_W)
-        else:
-            ev = reshape_event_no_sample(ev, SENSOR_H, SENSOR_W, IMAGE_H, IMAGE_W)
-        ev = slice_events_random(ev, self.slice_length, self.rng)
-        if self.augment:
-            ev = base_augment(ev, IMAGE_W, self.rng)
-        ev[:, 0] = np.clip(ev[:, 0], 0, IMAGE_W - 1)
-        ev[:, 1] = np.clip(ev[:, 1], 0, IMAGE_H - 1)
+                ev = reshape_event_unique(ev, SENSOR_H, SENSOR_W, IMAGE_H, IMAGE_W)
+            else:
+                ev = reshape_event_no_sample(ev, SENSOR_H, SENSOR_W, IMAGE_H, IMAGE_W)
+            ev = slice_events_random(ev, self.slice_length, self.rng)
+            if self.augment:
+                ev = base_augment(ev, IMAGE_W, self.rng)
+            ev[:, 0] = np.clip(ev[:, 0], 0, IMAGE_W - 1)
+            ev[:, 1] = np.clip(ev[:, 1], 0, IMAGE_H - 1)
         return ev
 
     def host_image(self, idx: int) -> np.ndarray:
@@ -180,14 +182,14 @@ class NImageNetDataset:
 
     def __getitem__(self, idx: int) -> NImageNetSample:
         ev = self._event_tensor(idx)
-
-        n = len(ev)
-        out = np.zeros((4, self.slice_length), np.int32)
-        t = ev[:, 2] - (ev[0, 2] if n else 0)
-        out[0, :n] = np.clip(ev[:, 0], 0, IMAGE_W - 1).astype(np.int32)
-        out[1, :n] = np.clip(ev[:, 1], 0, IMAGE_H - 1).astype(np.int32)
-        out[2, :n] = t.astype(np.int64).astype(np.int32)
-        out[3, :n] = ev[:, 3].astype(np.int32)
+        with span("nimagenet/prep"):  # the int32 packing
+            n = len(ev)
+            out = np.zeros((4, self.slice_length), np.int32)
+            t = ev[:, 2] - (ev[0, 2] if n else 0)
+            out[0, :n] = np.clip(ev[:, 0], 0, IMAGE_W - 1).astype(np.int32)
+            out[1, :n] = np.clip(ev[:, 1], 0, IMAGE_H - 1).astype(np.int32)
+            out[2, :n] = t.astype(np.int64).astype(np.int32)
+            out[3, :n] = ev[:, 3].astype(np.int32)
         return NImageNetSample(out, n, int(self.labels[idx]))
 
 

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..utils.profiling import span
 from .train_step import Batch, _map_batch
 
 
@@ -133,11 +134,12 @@ def device_prefetch(iterator, mesh: Mesh, size: int = 2):
     of the JAX package). ``(batch, extra)`` pairs, as the loaders yield
     them, keep ``extra`` (index arrays) on the host. Dtypes are kept: the
     step's ``batch_on_device`` upcasts on the device."""
-    def put(item):
-        if isinstance(item, Batch):
-            return _map_batch(lambda x: _to_device(x, mesh.device), item)
-        batch, extra = item
-        return _map_batch(lambda x: _to_device(x, mesh.device), batch), extra
+    def put(item):  # pin every leaf and start its copy
+        with span("h2d/stage"):
+            if isinstance(item, Batch):
+                return _map_batch(lambda x: _to_device(x, mesh.device), item)
+            batch, extra = item
+            return _map_batch(lambda x: _to_device(x, mesh.device), batch), extra
 
     queue = collections.deque()
     for item in iterator:

@@ -86,6 +86,7 @@ from ..reps.event_mosaic import mosaic_event_rep, supports_event_mosaic
 from ..train.ema import EMAState, ema_init, ema_update, ema_update_k
 from ..train.losses import LossConfig, detection_loss
 from ..train.losses_variants import detection_loss_distill, detection_loss_fuseab
+from ..utils.profiling import span
 from .batch_norm import convert_global_batch_norm
 from .dist import all_reduce, group_size
 
@@ -287,11 +288,12 @@ def make_train_step(
     def apply_update(state: TrainState) -> TrainState:
         """The optimizer step on the gradients left by ``backward``, then
         the EMA blend (on every call, microsteps included)."""
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in state.model.named_parameters()}
-        if group is not None:
-            grads = _summed(grads, group)
-        state.opt_state.update(grads)
+        with span("step/update"):
+            grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for n, p in state.model.named_parameters()}
+            if group is not None:
+                grads = _summed(grads, group)
+            state.opt_state.update(grads)
         if update_ema:
             state.ema = ema_update(state.ema, state.model)
         state.step += 1
@@ -307,22 +309,26 @@ def make_train_step(
         synced[:] = [state.model]
 
     def train_step(state: TrainState, batch: Batch, epoch: int):
-        join(state)
-        batch = batch_on_device(batch, device)
-        # a bf16 model: the warp's source in bf16 (JAX: _warp_gd)
-        imgs = images_of(batch, torch.bfloat16 if _bf16(state.model) else None)
-        model = state.model.train()
-        model.zero_grad(set_to_none=True)
-        loss, parts = loss_fn(model, imgs, batch, epoch)
-        loss.backward()
-        state = apply_update(state)
-        parts = {k: v.detach() for k, v in parts.items()}
-        parts["loss"] = loss.detach()
-        if group is not None:  # the global batch's: the sum of the shares
-            keys = list(parts)
-            total = all_reduce(torch.stack([parts[k].float() for k in keys]), group)
-            parts = dict(zip(keys, total.unbind()))
-        return state, parts
+        with span("step"):
+            join(state)
+            with span("step/input"):
+                batch = batch_on_device(batch, device)
+                # a bf16 model: the warp's source in bf16 (JAX: _warp_gd)
+                imgs = images_of(batch, torch.bfloat16 if _bf16(state.model) else None)
+            model = state.model.train()
+            model.zero_grad(set_to_none=True)
+            with span("step/loss"):
+                loss, parts = loss_fn(model, imgs, batch, epoch)
+            with span("step/backward"):
+                loss.backward()
+            state = apply_update(state)
+            parts = {k: v.detach() for k, v in parts.items()}
+            parts["loss"] = loss.detach()
+            if group is not None:  # the global batch's: the sum of the shares
+                keys = list(parts)
+                total = all_reduce(torch.stack([parts[k].float() for k in keys]), group)
+                parts = dict(zip(keys, total.unbind()))
+            return state, parts
 
     train_step.device = device
     train_step.rep_fn = rep_fn

@@ -27,6 +27,7 @@ from ..data.nimagenet import IMAGE_H, IMAGE_W, NImageNetDataset
 from ..events.core import EventBlock
 from ..models.resnet import init_weights_
 from ..reps.dispatch import batched_representation
+from ..utils.profiling import span
 
 FREEZE_MODES = ("none", "all_except_fc", "all_except_conv1_fc")
 
@@ -148,14 +149,15 @@ class ClassifierTrainer:
 
     def train_step(self, batch, labels: torch.Tensor):
         """One update; returns (loss, logits) of the batch before it."""
-        self.model.train()
-        logits = self.model(self.images_of(batch))
-        loss = F.cross_entropy(logits, labels)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer.step()
-        self.step += 1
-        return loss.detach(), logits.detach()
+        with span("classify/step"):
+            self.model.train()
+            logits = self.model(self.images_of(batch))
+            loss = F.cross_entropy(logits, labels)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+            self.step += 1
+            return loss.detach(), logits.detach()
 
     @torch.no_grad()
     def eval_step(self, batch) -> torch.Tensor:
@@ -233,10 +235,12 @@ class ClassifierTrainer:
             if train:
                 loss, logits = self.train_step(
                     batch, torch.from_numpy(labels).to(self.device))
-                losses.append(float(loss))
             else:
                 logits = self.eval_step(batch)
-            lg = logits[:real].cpu().numpy()  # readback = device sync
+            with span("classify/readback"):  # readback = device sync
+                if train:
+                    losses.append(float(loss))
+                lg = logits[:real].cpu().numpy()
             infer_s += time.perf_counter() - t1
             labels = labels[:real]
             top1 += topk_accuracy(lg, labels, 1) * real

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.profiling import span
+
 
 class EMAState(NamedTuple):
     variables: Dict[str, torch.Tensor]
@@ -56,8 +58,11 @@ def ema_update_k(state: EMAState, model: nn.Module, k: int,
 
 def _blend_(variables: Dict[str, torch.Tensor], model: nn.Module, d: np.float32) -> None:
     """variables = d * variables + (1 - d) * the model's state, in place."""
-    new = _floating_state(model)
-    names = list(variables)
-    es = [variables[k] for k in names]
-    torch._foreach_mul_(es, float(d))
-    torch._foreach_add_(es, [new[k].detach() for k in names], alpha=float(np.float32(1) - d))
+    with span("ema"):
+        with span("ema/state_dict"):
+            new = _floating_state(model)
+        names = list(variables)
+        es = [variables[k] for k in names]
+        torch._foreach_mul_(es, float(d))
+        torch._foreach_add_(es, [new[k].detach() for k in names],
+                            alpha=float(np.float32(1) - d))

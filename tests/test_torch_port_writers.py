@@ -9,7 +9,8 @@
   (wandb is never installed), ``MultiWriter.default`` with both flags and
   the warning that names a missing module;
 - ``utils/tasks.py::TaskManager`` (results in submission order),
-  ``utils/profiling.py``: ``SpeedMeter``, ``profile_trace`` on the CPU, and
+  ``utils/profiling.py``: ``profile_trace`` on the CPU with its counters
+  file (``tests/test_torch_port_tracing.py`` holds the spans), and
   ``get_model_info``: parameters equal to the JAX package's count on the
   shrunk detector, FLOPs equal to a hand count on a two-conv module. The
   JAX figure is XLA's cost analysis, which counts elementwise work and
@@ -199,32 +200,26 @@ def test_task_manager_keeps_submission_order():
         assert tm.results() == [i * i for i in range(8)]
 
 
-def test_speed_meter():
-    m = profiling.SpeedMeter()
-    assert m.summary() == {}
-    x = torch.ones(4)
-    for _ in range(2):
-        with m.measure("infer", sync_value=x * 2):
-            time.sleep(0.01)
-        with m.measure("post", sync_value=np.ones(2)):
-            pass
-        with m.measure("pre"):
-            pass
-    m.add_samples(4)
-    s = m.summary()
-    assert set(s) == {"infer_ms_per_sample", "post_ms_per_sample", "pre_ms_per_sample"}
-    assert 2 * 10 / 4 <= s["infer_ms_per_sample"] < 1e3
-
-
-def test_profile_trace_writes_a_chrome_trace(tmp_path):
+def test_profile_trace_writes_a_chrome_trace(tmp_path, monkeypatch):
+    """The Chrome trace holds the block's spans, and the counters file beside
+    it what the block added to the counters and to the spans' totals (not
+    what an earlier window of the process added)."""
+    monkeypatch.setattr(profiling, "_COUNTS", {"before": 1})
+    monkeypatch.setattr(profiling, "_SPANS", {"ers_span": (2, 1.0)})
     with profiling.profile_trace(tmp_path) as prof:
-        with profiling.annotate("ers_span"):
+        with profiling.span("ers_span"):
             torch.ones(64, 64) @ torch.ones(64, 64)
+        profiling.count("things", 3)
     traces = list(tmp_path.glob("*.pt.trace.json"))
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
-    assert any(e.get("name") == "ers_span" for e in events)
-    assert any(a.key == "ers_span" for a in prof.key_averages())
+    assert any(e.get("name") == "ers/ers_span" for e in events)
+    assert any(a.key == "ers/ers_span" for a in prof.key_averages())
+    added = json.loads(traces[0].with_name(traces[0].name[:-len(".json")]
+                                           + ".counters.json").read_text())
+    assert added["counters"] == {"things": 3}
+    assert list(added["spans"]) == ["ers_span"] and added["spans"]["ers_span"]["calls"] == 1
+    assert 0 < added["spans"]["ers_span"]["host_s"] < 1.0
 
 
 def test_model_flops_hand_count():
