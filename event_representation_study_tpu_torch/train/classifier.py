@@ -88,6 +88,11 @@ def topk_accuracy(logits: np.ndarray, labels: np.ndarray, k: int = 1) -> float:
     return float(np.mean((topk == labels[:, None]).any(-1)))
 
 
+def _blocks(ev: np.ndarray, num: np.ndarray) -> EventBlock:
+    """The batched :class:`EventBlock` of ``(B, 4, N)`` int32 events."""
+    return EventBlock(x=ev[:, 0], y=ev[:, 1], t=ev[:, 2], p=ev[:, 3], num=num)
+
+
 class ClassifierTrainer:
     def __init__(
         self,
@@ -191,17 +196,17 @@ class ClassifierTrainer:
         ev = np.stack([s.events for s in samples])
         num = np.array([s.num_events for s in samples], np.int32)
         labels = np.array([s.label for s in samples], np.int64)
-        blocks = EventBlock(x=ev[:, 0], y=ev[:, 1], t=ev[:, 2], p=ev[:, 3], num=num)
-        return blocks, labels
+        return _blocks(ev, num), labels
 
     def _batch_of(self, ds, indices):
-        """The batch on the device and its labels on the host."""
+        """The batch on the device and its labels on the host, assembled on
+        the dataset's thread pool (``NImageNetDataset.batch``)."""
         if self.rep_fn is None:
-            imgs = np.stack([ds.host_image(int(i)) for i in indices])
+            imgs = ds.host_images(indices)
             labels = np.array([ds.labels[int(i)] for i in indices], np.int64)
             return torch.from_numpy(imgs).to(self.device), labels
-        blocks, labels = self._collate([ds[int(i)] for i in indices])
-        return blocks.to(self.device), labels
+        ev, num, labels = ds.batch(indices)
+        return _blocks(ev, num).to(self.device), labels
 
     def run_epoch(self, ds: NImageNetDataset, batch_size: int, train: bool = True,
                   rng: np.random.Generator = None) -> Dict[str, float]:
@@ -209,8 +214,9 @@ class ClassifierTrainer:
         plus the reference's load-vs-infer timing split: n_imagenet's
         MiniBatchTracker brackets data loading and inference with separate
         timers (base/utils/tracker.py:1-60, minibatch_trainer.py's
-        start_load_timing/start_infer_timing); here ``load_s`` is the host
-        batch assembly (disk decode, collate, the copy to the device) and
+        start_load_timing/start_infer_timing); here ``load_s`` is the step
+        thread's wall time on the host batch (its wait on the pool's decode
+        and prep, the copy to the device) and
         ``infer_s`` the device step including the readback that forces
         completion."""
         rng = rng or np.random.default_rng(self.seed)

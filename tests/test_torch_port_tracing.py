@@ -202,20 +202,22 @@ def test_train_step_and_feed_ranges_nest():
 
 
 def test_classification_ranges_nest(npz_files):
-    """A training epoch of the classifier under the profiler: a decode and
-    two prep ranges a sample (the float64 work, then the int32 packing), a
-    step and a readback a batch."""
+    """A training epoch of the classifier under the profiler: a batch range
+    a batch, and inside it a decode and a prep range (the step thread's wait
+    on each of the pool's phases), then a step and a readback a batch."""
     trainer, ds = _classifier(npz_files)
     with _recorded() as prof:
         trainer.run_epoch(ds, CLS_BATCH, train=True, rng=np.random.default_rng(0))
     ranges = _ranges(prof)
-    batches, samples = len(ds) // CLS_BATCH, len(ds) // CLS_BATCH * CLS_BATCH
-    assert ranges["nimagenet/decode"] == [None] * samples
-    assert ranges["nimagenet/prep"] == [None] * (2 * samples)
+    batches = len(ds) // CLS_BATCH
+    assert ranges["nimagenet/batch"] == [None] * batches
+    assert ranges["nimagenet/decode"] == ["nimagenet/batch"] * batches
+    assert ranges["nimagenet/prep"] == ["nimagenet/batch"] * batches
     assert ranges["classify/step"] == [None] * batches
     assert ranges["classify/readback"] == [None] * batches
     totals = profiling.span_totals()
-    assert totals["nimagenet/decode"][0] == samples and totals["nimagenet/decode"][1] > 0
+    assert totals["nimagenet/decode"][0] == batches and totals["nimagenet/decode"][1] > 0
+    assert totals["nimagenet/batch"][1] >= totals["nimagenet/decode"][1] + totals["nimagenet/prep"][1]
 
 
 @pytest.mark.parametrize("slow", ["worker", "consumer"])
