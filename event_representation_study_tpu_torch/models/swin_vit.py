@@ -15,7 +15,13 @@ Swin-V2 as the JAX package writes it, on (B, L, C) token tensors:
 - patch merging between stages; stages 0-2 emit the post-merge tensor.
 
 The four outputs are LayerNormed and pooled to the fixed (C, H, W) grid
-(:data:`.backbones.FIXED_GRID`). The attention is plain ``matmul`` and
+(:data:`.backbones.FIXED_GRID`).
+
+Spans (``utils/profiling.py``; a flag read unless a profiler records):
+``swin/attn`` around each window attention, ``swin/mlp`` around a block's
+MLP, ``swin/merge`` around a patch merging; counters ``swin/windows``
+(windows attended, images x windows an image) and ``swin/tokens`` (their
+tokens, the padding included). The attention is plain ``matmul`` and
 ``softmax``: no fused attention kernel, whose additive bias and mask would
 not be comparable bit for bit.
 """
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import count, span
 from .backbones import FIXED_GRID
 from .layers import adaptive_avg_pool_chw
 
@@ -96,22 +103,25 @@ class WindowAttentionV2(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, ws: int, mask=None):
-        B_, N, C = x.shape
-        h = self.num_heads
-        q, k, v = self.qkv(x).reshape(B_, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
-        q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
-        k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
-        scale = torch.exp(self.logit_scale.clamp(max=math.log(100.0)))
-        attn = (q @ k.transpose(-2, -1)) * scale
-        rel = _constant(_relative_coords_log, ws, device=x.device)
-        bias = 16.0 * torch.sigmoid(self.cpb_mlp_1(F.relu(self.cpb_mlp_0(rel))))  # (N, N, h)
-        attn = attn + bias.permute(2, 0, 1)[None]
-        if mask is not None:
-            nW = mask.shape[0]
-            attn = (attn.reshape(B_ // nW, nW, h, N, N) + mask[None, :, None]).reshape(
-                B_, h, N, N)
-        out = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(B_, N, C)
-        return self.proj(out)
+        with span("swin/attn"):
+            B_, N, C = x.shape
+            count("swin/windows", B_)
+            count("swin/tokens", B_ * N)
+            h = self.num_heads
+            q, k, v = self.qkv(x).reshape(B_, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
+            q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
+            k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
+            scale = torch.exp(self.logit_scale.clamp(max=math.log(100.0)))
+            attn = (q @ k.transpose(-2, -1)) * scale
+            rel = _constant(_relative_coords_log, ws, device=x.device)
+            bias = 16.0 * torch.sigmoid(self.cpb_mlp_1(F.relu(self.cpb_mlp_0(rel))))  # (N, N, h)
+            attn = attn + bias.permute(2, 0, 1)[None]
+            if mask is not None:
+                nW = mask.shape[0]
+                attn = (attn.reshape(B_ // nW, nW, h, N, N) + mask[None, :, None]).reshape(
+                    B_, h, N, N)
+            out = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(B_, N, C)
+            return self.proj(out)
 
 
 class SwinBlockV2(nn.Module):
@@ -143,7 +153,8 @@ class SwinBlockV2(nn.Module):
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         y = y[:, :H, :W].reshape(B, L, C)
         x = x + self.norm1(y)  # post-norm residuals
-        h = self.mlp_fc2(F.gelu(self.mlp_fc1(x), approximate="tanh"))
+        with span("swin/mlp"):
+            h = self.mlp_fc2(F.gelu(self.mlp_fc1(x), approximate="tanh"))
         return x + self.norm2(h)
 
 
@@ -154,13 +165,14 @@ class PatchMerging(nn.Module):
         self.norm = nn.LayerNorm(2 * dim, eps=1e-6)
 
     def forward(self, x, H: int, W: int):
-        B, L, C = x.shape
-        y = x.reshape(B, H, W, C)
-        if H % 2 or W % 2:  # pad odd sides
-            y = F.pad(y, (0, 0, 0, W % 2, 0, H % 2))
-        parts = [y[:, 0::2, 0::2], y[:, 1::2, 0::2], y[:, 0::2, 1::2], y[:, 1::2, 1::2]]
-        y = torch.cat(parts, dim=-1).reshape(B, -1, 4 * C)
-        return self.norm(self.reduction(y))
+        with span("swin/merge"):
+            B, L, C = x.shape
+            y = x.reshape(B, H, W, C)
+            if H % 2 or W % 2:  # pad odd sides
+                y = F.pad(y, (0, 0, 0, W % 2, 0, H % 2))
+            parts = [y[:, 0::2, 0::2], y[:, 1::2, 0::2], y[:, 0::2, 1::2], y[:, 1::2, 1::2]]
+            y = torch.cat(parts, dim=-1).reshape(B, -1, 4 * C)
+            return self.norm(self.reduction(y))
 
 
 class SwinTransformerV2ViT(nn.Module):

@@ -12,6 +12,9 @@
 - Spans and counts from many threads lose no update.
 - A shrunk detector train step and a classification step give bit-equal
   outputs with the profiler on and off.
+- A Swin-V2 forward opens ``swin/attn`` and ``swin/mlp`` once a block and
+  ``swin/merge`` once a merge, and counts the windows and tokens its maps
+  give (padding included); without a profiler it records nothing.
 """
 import contextlib
 import sys
@@ -32,6 +35,7 @@ from event_representation_study_tpu_torch.events import (
 )
 from event_representation_study_tpu_torch.models import build_model
 from event_representation_study_tpu_torch.models.resnet import EventResNet
+from event_representation_study_tpu_torch.models.swin_vit import SwinTransformerV2ViT
 from event_representation_study_tpu_torch.ops.image import letterbox_labels
 from event_representation_study_tpu_torch.parallel.mesh import device_prefetch, make_mesh
 from event_representation_study_tpu_torch.parallel.train_step import (
@@ -303,3 +307,27 @@ def test_spans_change_no_output(path, npz_files):
                 assert torch.equal(a[k], b[k]), k
             else:
                 assert a[k] == b[k], k
+
+
+def test_swin_ranges_and_counts():
+    """A small Swin-V2 (embed 32, depths 2/2/4/2, window 12) on 64² input:
+    maps 16/8/4/2. Stage 0 pads 16² to 24², 4 windows of 144 tokens an
+    image (its shifted block attends the same windows under the mask);
+    stages 1-3 shrink the window to the map, 1 window of 64, 16 and 4."""
+    depths = (2, 2, 4, 2)
+    net = SwinTransformerV2ViT(12, embed_dim=32, depths=depths, num_heads=(1, 2, 4, 8)).eval()
+    x = torch.randn(B, 12, 64, 64)
+    with torch.no_grad():
+        net(x)  # no profiler: nothing recorded
+        assert profiling.counters() == {} and profiling.span_totals() == {}
+        with _recorded() as prof:
+            net(x)
+    ranges = _ranges(prof)
+    blocks = sum(depths)
+    assert ranges["swin/attn"] == [None] * blocks and ranges["swin/mlp"] == [None] * blocks
+    assert ranges["swin/merge"] == [None] * (len(depths) - 1)
+    windows = [4, 1, 1, 1]  # an image, by stage
+    tokens = [144, 64, 16, 4]  # a window, by stage
+    assert profiling.counters() == {
+        "swin/windows": B * sum(d * w for d, w in zip(depths, windows)),
+        "swin/tokens": B * sum(d * w * n for d, w, n in zip(depths, windows, tokens))}
