@@ -21,6 +21,14 @@ Phases, one printed line each:
    B=1, the event mosaic's 200,000-event rows), exactly equal to the plain
    version, with their times beside the plain version's and the library
    call's.
+4b. kernel_K4_window_attn: K4, the Swin-V2 window attention core
+   (``ops/window_attention.py``), forward and backward against the model's
+   plain code at the Swin-V2-L detector's stage-0 (2304 windows, 6 heads,
+   shifted) and stage-2 (144 windows, 24 heads) shapes at 576², batch 16:
+   output, qkv, scale and bias gradients within 1e-4 of the largest,
+   bit-identical across two runs; forward and backward ms beside the plain
+   code's and the least time of the shape (its products' FLOPs at the
+   float32 peak, or its bytes at the HBM rate).
 5. serve: the full-width ``configs/gen1_optimized.py`` detector serves
    requests of 8 windows through ``make_server``; the kernel launch counters
    are zeroed before and read after, and K1 must run once per request.
@@ -259,6 +267,9 @@ REPLACES = "event_representation_study_tpu/ops/pallas_scatter.py"
 SOURCE = "event_representation_study_tpu_torch/csrc/fused_segment_reduce.cu"
 K3_SOURCE = "event_representation_study_tpu_torch/csrc/roll_rows.cu"
 K3_REPLACES = "event_representation_study_tpu/ops/pallas_roll.py:25"
+K4_SOURCE = "event_representation_study_tpu_torch/csrc/window_attention.cu"
+# windows, tokens, heads, windows of the shift mask (0: unmasked)
+K4_SHAPES = {"stage0_shifted": (2304, 144, 6, 144), "stage2": (144, 144, 24, 0)}
 TRAIN_STEPS = {0: 3, 5: 3}  # epoch -> timed steps: ATSS below epoch 4, TAL from it
 LABELS_PER_WINDOW = 8
 
@@ -870,6 +881,90 @@ def check_k3(k3_args, label: str = "kernel_K3"):
             "max_abs_err": max(errs), "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": "bytes",
             "library_ms": total["library_ms"], "per_launch": passes}
+
+
+def window_attention_bound_ms(windows, n, heads, mask_windows, backward: bool) -> float:
+    """Least time of K4's work at one shape: the float32 FLOPs of its
+    products (q̂ k̂ᵀ and P v forward; P, dP, dv, dq̂ and dk̂ backward) at the
+    float32 peak, or its bytes read and written once at the HBM rate
+    (forward: qkv in, the output out; backward: qkv, the output, its
+    gradient and the log-sum-exp in, qkv's gradient out), whichever is
+    longer, with the bias and mask tables read once."""
+    c = heads * 32
+    flops = (5 if backward else 2) * 2 * windows * heads * n * n * 32
+    rows = windows * n
+    tables = (heads + mask_windows) * n * n
+    words = rows * (3 * c + c + c + heads + 3 * c) + tables + heads * n * n if backward \
+        else rows * (3 * c + c) + tables
+    return 1e3 * max(flops / FP32_FLOPS, 4 * words / HBM_BYTES_PER_S)
+
+
+def check_k4(dev):
+    """K4 against the model's plain code (``window_attention_plain``,
+    through autograd) at the Swin-V2-L detector's stage-0 and stage-2 shapes:
+    errors, two runs bit-equal, and forward and backward ms of each beside
+    the bound. Returns the kernels-line entry without ``launches``."""
+    from event_representation_study_tpu_torch.models import swin_vit
+    from event_representation_study_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shapes, errs = {}, []
+    for label, (windows, n, heads, mask_windows) in K4_SHAPES.items():
+        c = heads * 32
+        qkv = torch.randn(windows, n, 3 * c, generator=gen, device=dev)
+        scale = torch.exp(math.log(10.0) + 0.3 * torch.randn(heads, generator=gen, device=dev))
+        bias = 16 * torch.sigmoid(torch.randn(heads, n, n, generator=gen, device=dev))
+        dout = torch.randn(windows, n, c, generator=gen, device=dev)
+        mask = None
+        if mask_windows:
+            side = math.isqrt(mask_windows) * math.isqrt(n)
+            mask = torch.from_numpy(swin_vit._shift_mask(side, side, math.isqrt(n),
+                                                         math.isqrt(n) // 2)).to(dev)
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, scale, bias)]
+        plain_out = swin_vit.window_attention_plain(leaves[0], leaves[1][:, None, None],
+                                                    leaves[2], mask, heads)
+        want = [plain_out.detach(), *torch.autograd.grad(plain_out, leaves, dout,
+                                                         retain_graph=True)]
+        runs = []
+        for _ in range(2):
+            got = wa.window_attention(*leaves, mask, heads)
+            runs.append([got.detach(), *torch.autograd.grad(got, leaves, dout)])
+        err = {name: ((a - b).abs().max() / b.abs().max()).item()
+               for name, a, b in zip(("out", "dqkv", "dscale", "dbias"), runs[0], want)}
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        errs.append(max(err.values()))
+        out, lse = wa._forward_cuda(qkv, scale, bias, mask, heads, True)
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: wa.window_attention(qkv, scale, bias, mask, heads))
+            plain_fwd_ms = cuda_ms(lambda: swin_vit.window_attention_plain(
+                qkv, scale[:, None, None], bias, mask, heads), iters=5)
+        bwd_ms = cuda_ms(lambda: wa._backward_cuda(qkv, out, dout, lse, scale, bias, mask, heads))
+        plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, dout,
+                                                           retain_graph=True), iters=5)
+        shapes[label] = {
+            "windows": windows, "tokens": n, "heads": heads, "mask_windows": mask_windows,
+            "rel_err": err, "bit_equal_runs": same,
+            "ms": fwd_ms, "plain_ms": plain_fwd_ms,
+            "bound_ms": window_attention_bound_ms(windows, n, heads, mask_windows, False),
+            "backward_ms": bwd_ms, "plain_backward_ms": plain_bwd_ms,
+            "backward_bound_ms": window_attention_bound_ms(windows, n, heads, mask_windows,
+                                                           True),
+            "backward_group": wa.backward_group(
+                windows, heads, torch.cuda.get_device_properties(dev).multi_processor_count)}
+        del qkv, bias, dout, leaves, plain_out, want, runs, out, lse
+        torch.cuda.empty_cache()
+    say("kernel_K4_window_attn", shapes=shapes, tolerance="1e-4 of the largest; runs bit-equal",
+        tf32=tf32_state())
+    require(all(e <= 1e-4 for e in errs) and all(v["bit_equal_runs"] for v in shapes.values()),
+            f"K4 disagrees with the plain code: {shapes}")
+    stage0 = shapes["stage0_shifted"]
+    return {"name": "window_attention", "route": "cuda", "source": K4_SOURCE,
+            "replaces": "none (the JAX package's attention is plain jnp)",
+            "max_abs_err": max(errs), "ms": stage0["ms"], "plain_ms": stage0["plain_ms"],
+            "bound_ms": stage0["bound_ms"], "bound_by": "flops", "library_ms": None,
+            "backward_ms": stage0["backward_ms"],
+            "plain_backward_ms": stage0["plain_backward_ms"],
+            "backward_bound_ms": stage0["backward_bound_ms"], "by_shape": shapes}
 
 
 def warp_phase(dev):
@@ -2561,13 +2656,16 @@ def zoo_phase(dev, checked):
     arguments that the warm-up step gave it (:func:`check_k3`). Returns the
     K1 launches of the timed requests and steps, and for each K3 shape its
     timed launches, the first config and image size that gave it and
-    ``check_k3``'s entry (None for a shape in ``checked``)."""
+    ``check_k3``'s entry (None for a shape in ``checked``), and K4's forward
+    and backward launches of the timed requests and steps (the Swin-V2-L
+    detector's 24 window attentions a forward; no other family has one)."""
     from event_representation_study_tpu_torch.cli.infer import make_server
     from event_representation_study_tpu_torch.ops import fused_scatter as fs
     from event_representation_study_tpu_torch.ops import roll
+    from event_representation_study_tpu_torch.ops import window_attention as wa
     from event_representation_study_tpu_torch.utils.config import load_config
 
-    k1, rolls = 0, {}
+    k1, rolls, k4 = 0, {}, {wa.K4: 0, wa.K4_BACKWARD: 0}
     requests = [fake_batch(300 + 10 * r) for r in range(REQUESTS + 1)]
     for name in ZOO_CONFIGS:
         cfg = load_config(f"configs/{name}.py")
@@ -2581,13 +2679,14 @@ def zoo_phase(dev, checked):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fs.reset_launches()
+        wa.reset_launches()
         serve_ms, counts = [], []
         for blk in requests[:REQUESTS]:
             t = time.perf_counter()
             dets, n = serve(blk)
             counts.append(n.tolist())
             serve_ms.append((time.perf_counter() - t) * 1e3)
-        serve_k1 = fs.LAUNCHES[fs.K1]
+        serve_k1, serve_k4 = fs.LAUNCHES[fs.K1], dict(wa.LAUNCHES)
         serve_peak = torch.cuda.max_memory_allocated()
         require(serve_k1 == REQUESTS, f"{name}: K1 launches {serve_k1} for {REQUESTS} requests")
         require(dets.shape == (B, 300, 6) and dets.dtype == torch.float32
@@ -2614,6 +2713,7 @@ def zoo_phase(dev, checked):
         torch.cuda.reset_peak_memory_stats()
         fs.reset_launches()
         roll.reset_launches()
+        wa.reset_launches()
         step_ms, per_step = [], []
         for batch in batches[1:]:
             t = time.perf_counter()
@@ -2621,6 +2721,7 @@ def zoo_phase(dev, checked):
             per_step.append({k: v.item() for k, v in parts.items()})  # waits
             step_ms.append((time.perf_counter() - t) * 1e3)
         train_k1, train_k3 = fs.LAUNCHES[fs.K1], roll.LAUNCHES[roll.K3]
+        train_k4 = dict(wa.LAUNCHES)
         train_peak = torch.cuda.max_memory_allocated()
         changed = sum(not torch.equal(p0[n], p) for n, p in model.named_parameters())
         say("zoo", config=name, params=n_params, img=img, batch=B, events_per_window=N,
@@ -2629,19 +2730,27 @@ def zoo_phase(dev, checked):
             warmup_step_ms=warm_ms, warmup_step=warm, step_ms=step_ms,
             step_median_ms=statistics.median(step_ms), steps=per_step,
             train_peak_mem_bytes=train_peak,
-            launches={"serve_K1": serve_k1, "train_K1": train_k1, "train_K3": train_k3},
+            launches={"serve_K1": serve_k1, "train_K1": train_k1, "train_K3": train_k3,
+                      "serve_K4": serve_k4, "train_K4": train_k4},
             roll_shapes=[list(x) for x, _ in key],
             params_changed=changed, params_total=len(p0), tf32=tf32_state())
         require(train_k1 == ZOO_TRAIN_STEPS and train_k3 == 2 * ZOO_TRAIN_STEPS,
                 f"{name}: K1 {train_k1}, K3 {train_k3} for {ZOO_TRAIN_STEPS} steps")
+        attentions = 24 if name == "gen1_swinvit" else 0
+        require(serve_k4 == {wa.K4: attentions * REQUESTS, wa.K4_BACKWARD: 0}
+                and train_k4 == {wa.K4: attentions * ZOO_TRAIN_STEPS,
+                                 wa.K4_BACKWARD: attentions * ZOO_TRAIN_STEPS},
+                f"{name}: K4 {serve_k4} serving, {train_k4} training")
         require(all(math.isfinite(v) for st in per_step for v in st.values()), f"{name}: losses")
         require(all(st["num_pos"] > 0 for st in per_step), f"{name}: positive anchors")
         require(changed >= 0.9 * len(p0), f"{name}: {len(p0) - changed} parameters did not change")
         k1 += serve_k1 + train_k1
+        for k in k4:
+            k4[k] += serve_k4[k] + train_k4[k]
         rolls[key]["launches"] += train_k3
         del state, model, step, batches, p0
         torch.cuda.empty_cache()
-    return k1, rolls
+    return k1, rolls, k4
 
 
 def _matched_iou(a, b):
@@ -4436,6 +4545,7 @@ def main() -> int:
                       flush)
     check_hard_shapes(dev, flush)
     del flush
+    k4 = check_k4(dev)
 
     # 5. serve through the full-width paper detector
     cfg = load_config("configs/gen1_optimized.py")
@@ -4554,7 +4664,7 @@ def main() -> int:
     k1_cls = check_kernel("kernel_K1_nimagenet", k1_cls_args, cnt_cols, flush)
     del flush, k1_cls_args
     # 20-22. the detector zoo, bf16 evaluation, the shrunk families card vs CPU
-    zoo_k1, zoo_rolls = zoo_phase(dev, {train_rolls})
+    zoo_k1, zoo_rolls, zoo_k4 = zoo_phase(dev, {train_rolls})
     half_k1 = zoo_half_phase(dev)
     zoo_reference(dev)
     # 23-24. the training variants and deploy tools; their shrunk steps card vs CPU
@@ -4646,7 +4756,9 @@ def main() -> int:
                                               "library_ms", "max_abs_err", "per_launch")},
                 "launches": r["launches"]}
     k3["max_abs_err"] = max(v["max_abs_err"] for v in k3["by_shape"].values())
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    k4["launches_by_path"] = {"zoo": zoo_k4}
+    k4["launches"] = sum(zoo_k4.values())
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,13 +17,19 @@ Swin-V2 as the JAX package writes it, on (B, L, C) token tensors:
 The four outputs are LayerNormed and pooled to the fixed (C, H, W) grid
 (:data:`.backbones.FIXED_GRID`).
 
+The attention core, from the qkv projection's output to the output
+projection's input, runs in the hand-written kernels of
+``ops/window_attention.py`` (K4) on float32 CUDA tensors of at most 144
+tokens a window and head dim 32, and in plain ``matmul`` and ``softmax``
+(:func:`window_attention_plain`) everywhere else: on the CPU, in half
+precision, for larger windows.
+
 Spans (``utils/profiling.py``; a flag read unless a profiler records):
 ``swin/attn`` around each window attention, ``swin/mlp`` around a block's
 MLP, ``swin/merge`` around a patch merging; counters ``swin/windows``
-(windows attended, images x windows an image) and ``swin/tokens`` (their
-tokens, the padding included). The attention is plain ``matmul`` and
-``softmax``: no fused attention kernel, whose additive bias and mask would
-not be comparable bit for bit.
+(windows attended, images x windows an image), ``swin/attn_fused`` (those
+of them on the kernels) and ``swin/tokens`` (their tokens, the padding
+included).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import window_attention
 from ..utils.profiling import count, span
 from .backbones import FIXED_GRID
 from .layers import adaptive_avg_pool_chw
@@ -92,6 +99,22 @@ def _constant(fn, *args, device):
     return _CONSTANTS[key]
 
 
+def window_attention_plain(qkv, scale, bias, mask, num_heads: int):
+    """The attention core in plain PyTorch: ``qkv`` (B_, N, 3C), ``scale``
+    (h, 1, 1), ``bias`` (h, N, N), ``mask`` (nW, N, N) or None -> (B_, N, C)."""
+    B_, N, C3 = qkv.shape
+    C, h = C3 // 3, num_heads
+    q, k, v = qkv.reshape(B_, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
+    q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
+    k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
+    attn = (q @ k.transpose(-2, -1)) * scale
+    attn = attn + bias[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        attn = (attn.reshape(B_ // nW, nW, h, N, N) + mask[None, :, None]).reshape(B_, h, N, N)
+    return (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(B_, N, C)
+
+
 class WindowAttentionV2(nn.Module):
     def __init__(self, dim: int, num_heads: int):
         super().__init__()
@@ -108,19 +131,16 @@ class WindowAttentionV2(nn.Module):
             count("swin/windows", B_)
             count("swin/tokens", B_ * N)
             h = self.num_heads
-            q, k, v = self.qkv(x).reshape(B_, N, 3, h, C // h).permute(2, 0, 3, 1, 4)
-            q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-6)
-            k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-6)
+            qkv = self.qkv(x)
             scale = torch.exp(self.logit_scale.clamp(max=math.log(100.0)))
-            attn = (q @ k.transpose(-2, -1)) * scale
             rel = _constant(_relative_coords_log, ws, device=x.device)
             bias = 16.0 * torch.sigmoid(self.cpb_mlp_1(F.relu(self.cpb_mlp_0(rel))))  # (N, N, h)
-            attn = attn + bias.permute(2, 0, 1)[None]
-            if mask is not None:
-                nW = mask.shape[0]
-                attn = (attn.reshape(B_ // nW, nW, h, N, N) + mask[None, :, None]).reshape(
-                    B_, h, N, N)
-            out = (torch.softmax(attn, dim=-1) @ v).transpose(1, 2).reshape(B_, N, C)
+            bias = bias.permute(2, 0, 1)
+            if window_attention.fused(qkv, h):
+                count("swin/attn_fused", B_)
+                out = window_attention.window_attention(qkv, scale, bias, mask, h)
+            else:
+                out = window_attention_plain(qkv, scale, bias, mask, h)
             return self.proj(out)
 
 

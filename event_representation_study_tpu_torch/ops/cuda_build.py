@@ -36,6 +36,11 @@ PROTOTYPES = {
         "roll_rows": ([_P] * 3 + [_I] * 5 + [_P], _I),
         "roll_rows_error_string": ([_I], ctypes.c_char_p),
     },
+    "window_attention": {
+        "window_attention_fwd": ([_P] * 6 + [_I] * 5 + [_P], _I),
+        "window_attention_bwd": ([_P] * 12 + [_I] * 5 + [_P], _I),
+        "window_attention_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 SOURCES = tuple(PROTOTYPES)
 
