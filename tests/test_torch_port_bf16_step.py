@@ -62,7 +62,6 @@ from event_representation_study_tpu_torch.utils.convert import flax_to_torch
 from torch_port_helpers import (
     assert_close,
     jax_leaves,
-    one_torch_thread,  # noqa: F401  (module fixture: one intra-op thread)
     port_bn_stats,
     random_jax_variables,
     small_cfg,

@@ -4,10 +4,8 @@ JAX Detector the port's predictions, and a JAX checkpoint restored by the
 JAX package's ``load_checkpoint`` loads into the port through
 ``flax_to_torch``. Bounds of ``test_torch_port_detector.py``: boxes 1e-3
 px, scores 1e-4."""
-import jax
 import numpy as np
 import pytest
-import torch
 
 from event_representation_study_tpu.models import build_model as jax_build_model
 from event_representation_study_tpu.train.checkpoint import load_checkpoint as jax_load_checkpoint
@@ -17,7 +15,7 @@ from event_representation_study_tpu_torch.models import build_model
 from event_representation_study_tpu_torch.train import checkpoint
 from event_representation_study_tpu_torch.utils.convert import flax_to_torch, to_flax_leaves
 from test_torch_port_trainer import stepped_state
-from torch_port_helpers import assert_close, random_jax_variables, small_cfg
+from torch_port_helpers import assert_close, eval_outputs, random_jax_variables, small_cfg
 
 
 @pytest.fixture(scope="module")
@@ -47,9 +45,7 @@ def test_port_checkpoint_serves_the_jax_detector(gen1_root, tmp_path):
     variables = _nest(to_flax_leaves(ema))
     jax_model = jax_build_model(small_cfg(), num_classes=2)
     x = np.random.default_rng(1).normal(size=(2, 64, 64, 12)).astype(np.float32)
-    want = np.asarray(jax.jit(lambda v, a: jax_model.apply(v, a, False))(variables, x))
-    with torch.no_grad():
-        got = model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    got, want = eval_outputs(jax_model, variables, model, x)
     assert_close("port EMA in JAX: boxes px", got[..., :4], want[..., :4], atol=1e-3)
     assert_close("port EMA in JAX: scores", got[..., 4:], want[..., 4:], atol=1e-4)
 
@@ -64,8 +60,6 @@ def test_jax_checkpoint_loads_through_flax_to_torch(tmp_path):
     model = build_model(small_cfg(), 2, device="cpu")
     model.load_state_dict(flax_to_torch(ckpt["state"]["ema"]["variables"]), strict=True)
     x = np.random.default_rng(2).normal(size=(1, 64, 64, 12)).astype(np.float32)
-    want = np.asarray(jax.jit(lambda v, a: jax_model.apply(v, a, False))(variables, x))
-    with torch.no_grad():
-        got = model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    got, want = eval_outputs(jax_model, variables, model, x)
     assert_close("JAX checkpoint in the port: boxes px", got[..., :4], want[..., :4], atol=1e-3)
     assert_close("JAX checkpoint in the port: scores", got[..., 4:], want[..., 4:], atol=1e-4)

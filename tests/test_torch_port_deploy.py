@@ -30,7 +30,6 @@ from event_representation_study_tpu_torch.train import rep_optimizer as repopt
 from event_representation_study_tpu_torch.utils import quantize
 from event_representation_study_tpu_torch.utils.convert import flax_to_torch, to_flax_leaves
 from torch_port_helpers import assert_close, jax_leaves, random_jax_variables, small_cfg
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 SKIP = ("head/cls_pred", "backbone/stem", "neck/upsample")
 

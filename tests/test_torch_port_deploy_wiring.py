@@ -32,7 +32,6 @@ from event_representation_study_tpu_torch.train.ema import ema_init
 from event_representation_study_tpu_torch.train.optim import SolverConfig, build_optimizer
 from event_representation_study_tpu_torch.utils import export
 from torch_port_helpers import CFG_PATH, SMALL, SERVE, small_cfg
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _randomized(model, seed):

@@ -27,7 +27,6 @@ from event_representation_study_tpu_torch.data import gen4
 from event_representation_study_tpu_torch.data.loader import EventBatchLoader
 from event_representation_study_tpu_torch.train import evaler
 from torch_port_helpers import ZOO_STEP_PARTS, assert_close, check_zoo_step
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W = gen4.GEN4_H, gen4.GEN4_W
 IMG, B, CAP, M = 128, 4, 4096, 16

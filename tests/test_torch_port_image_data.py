@@ -24,7 +24,7 @@ from event_representation_study_tpu.data import image_dataset as jax_images
 from event_representation_study_tpu.ops import warp as jax_warp
 from event_representation_study_tpu_torch.data import augment, image_dataset
 from event_representation_study_tpu_torch.ops import warp
-from torch_port_helpers import assert_close, one_torch_thread, small_cfg  # noqa: F401
+from torch_port_helpers import assert_close, small_cfg
 
 S = 64
 HYP = dict(small_cfg()["data_aug"], mosaic=1.0, mixup=1.0)

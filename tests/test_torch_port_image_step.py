@@ -21,13 +21,12 @@ from event_representation_study_tpu_torch.parallel.train_step import TrainState,
 from event_representation_study_tpu_torch.train import optim
 from event_representation_study_tpu_torch.train.ema import ema_init
 from event_representation_study_tpu_torch.train.losses import LossConfig
-from torch_port_helpers import (  # noqa: F401 (a module fixture)
+from torch_port_helpers import (
     IMAGE_STEP,
     assert_close,
     image_step_batch,
     image_step_models,
     jax_image_step,
-    one_torch_thread,
 )
 
 

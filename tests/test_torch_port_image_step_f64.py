@@ -25,14 +25,13 @@ from event_representation_study_tpu_torch.parallel.train_step import (
 )
 from event_representation_study_tpu_torch.train.losses import LossConfig
 from event_representation_study_tpu_torch.utils.convert import to_flax_leaves
-from torch_port_helpers import (  # noqa: F401 (a module fixture)
+from torch_port_helpers import (
     IMAGE_STEP,
     _leafwise,
     assert_close,
     image_step_batch,
     image_step_models,
     jax_image_step,
-    one_torch_thread,
     small_cfg,
 )
 

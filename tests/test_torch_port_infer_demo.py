@@ -26,10 +26,9 @@ from event_representation_study_tpu_torch.cli import infer
 from event_representation_study_tpu_torch.data import demo_data
 from event_representation_study_tpu_torch.events import generate_fake_events
 from event_representation_study_tpu_torch.utils.convert import flax_to_torch
-from torch_port_helpers import (  # noqa: F401 (a module fixture)
+from torch_port_helpers import (
     SMALL,
     assert_close,
-    one_torch_thread,
     random_jax_variables,
     small_cfg,
 )

@@ -309,27 +309,17 @@ def _k_step_trainer_runs(tmp):
 
 
 @pytest.mark.parametrize(
-    "call,item",
-    [
-        (_plots_trainer, None),
-        (_bf16_step_runs, None),
-        (_images_trainer, None),
-        (_k_step_trainer_runs, None),
-    ],
-    # ids of paths since ported keep their names: "train_plots" for the
-    # train/val plots (M19), "train_ptq" for a bf16 train step (M20),
+    "call",
+    [_plots_trainer, _bf16_step_runs, _images_trainer, _k_step_trainer_runs],
+    # the ids name the paths as they were named while unported: "train_plots"
+    # for the train/val plots (M19), "train_ptq" for a bf16 train step (M20),
     # "backbone" for an image-folder dataset (M19), "train_event_aug" for
-    # multi-step dispatch (M7); ported, each runs
+    # multi-step dispatch (M7)
     ids=["train_plots", "train_ptq", "backbone", "train_event_aug"],
 )
-def test_unported_paths_name_their_roadmap_item(call, item, tmp_path):
-    """An unported path raises naming its ROADMAP item; a path since ported
-    (item None) builds and runs."""
-    if item is None:
-        assert call(tmp_path) is not None
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        call(tmp_path)
+def test_ported_paths_run(call, tmp_path):
+    """Each path that once raised naming its ROADMAP item builds and runs."""
+    assert call(tmp_path) is not None
 
 
 @pytest.mark.parametrize(

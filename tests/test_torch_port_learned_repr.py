@@ -33,7 +33,6 @@ from event_representation_study_tpu_torch.utils.config import load_config
 from event_representation_study_tpu_torch.utils.convert import flax_to_torch, to_flax_leaves
 from torch_port_helpers import CFG_PATH, SMALL, assert_close, close_to_scale, jax_leaves
 from torch_port_helpers import random_variables
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 H, W, CAP, BINS = 240, 304, 2560, 6
 STREAMS = [(2500, 7), (800, 11), (64, 13)]  # the conftest fake_events

@@ -66,7 +66,6 @@ from torch_port_helpers import (
     _with_grad_spy,
     assert_close,
     jax_leaves,
-    one_torch_thread,  # noqa: F401  (module fixture: one intra-op thread)
     port_bn_stats,
     random_jax_variables,
     small_cfg,

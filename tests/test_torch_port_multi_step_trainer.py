@@ -19,7 +19,7 @@ from event_representation_study_tpu_torch.cli import train as train_cli
 from event_representation_study_tpu_torch.data.gen1 import write_gen1_fixture
 from event_representation_study_tpu_torch.train import checkpoint
 from event_representation_study_tpu_torch.train.engine import Trainer
-from torch_port_helpers import SMALL, assert_close, one_torch_thread, small_cfg  # noqa: F401
+from torch_port_helpers import SMALL, assert_close, small_cfg
 
 KW = dict(batch_size=2, img_size=64, num_events=512, device="cpu", augment=True, seed=3)
 WINDOWS = 10  # 5 batches of 2: two K = 2 calls and one remainder step

@@ -23,7 +23,6 @@ import torch
 from event_representation_study_tpu.search import bnn as jb
 from event_representation_study_tpu_torch.search import bnn as tb
 from torch_port_helpers import assert_close
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 COUNTS = (7, 7, 4)
 TOTAL = sum(COUNTS)

@@ -16,7 +16,7 @@ from event_representation_study_tpu_torch.search import chimera as t_chimera
 from event_representation_study_tpu_torch.search import db as t_db
 from event_representation_study_tpu_torch.search import gryffin as t_gryffin
 from torch_port_helpers import assert_close
-from torch_port_helpers import fake_surrogates, one_torch_thread  # noqa: F401 (fixtures)
+from torch_port_helpers import fake_surrogates  # noqa: F401 (a fixture)
 
 # (objectives, goals, tolerances, absolutes) of tests/test_chimera.py
 CHIMERA_CASES = {

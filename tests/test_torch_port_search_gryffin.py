@@ -16,7 +16,7 @@ from event_representation_study_tpu.search import gryffin as j_gryffin
 from event_representation_study_tpu.search import optimize as j_optimize
 from event_representation_study_tpu_torch.search import gryffin as t_gryffin
 from event_representation_study_tpu_torch.search import optimize as t_optimize
-from torch_port_helpers import fake_surrogates, one_torch_thread  # noqa: F401 (fixtures)
+from torch_port_helpers import fake_surrogates  # noqa: F401 (a fixture)
 
 
 def _study_objective(rec):

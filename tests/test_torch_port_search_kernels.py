@@ -16,7 +16,6 @@ from event_representation_study_tpu.search import kernels as jk
 from event_representation_study_tpu_torch.search import kernels as tk
 from event_representation_study_tpu_torch.search import native
 from torch_port_helpers import assert_close
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 COUNTS = (7, 7, 4)
 DRAWS, OBS, N_SAMPLES = 50, 6, 20

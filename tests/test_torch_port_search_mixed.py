@@ -24,7 +24,7 @@ from event_representation_study_tpu_torch.cli import bo as t_bo
 from event_representation_study_tpu_torch.search import kernels as t_kernels
 from event_representation_study_tpu_torch.search import mixed as t_mixed
 from torch_port_helpers import assert_close
-from torch_port_helpers import fake_surrogates, one_torch_thread  # noqa: F401 (fixtures)
+from torch_port_helpers import fake_surrogates  # noqa: F401 (a fixture)
 
 
 def _space(pkg):

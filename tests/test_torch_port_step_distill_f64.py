@@ -48,7 +48,6 @@ def _main():
         CFG_PATH, SMALL, VARIANT_STEP, _leafwise, _with_grad_spy, jax_leaves, random_variables)
     from event_representation_study_tpu_torch.utils.config import load_config
 
-    torch.set_num_threads(1)
     c = VARIANT_STEP
     IMG, B, M, epoch = c["IMG"], c["B"], c["M"], 2
     f64 = lambda tree: jax.tree.map(lambda a: np.asarray(a, np.float64), tree)  # noqa: E731

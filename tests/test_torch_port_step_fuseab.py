@@ -10,7 +10,6 @@ relative plus 1e-4 (the tolerances of ``test_torch_port_train_step.py``).
 import pytest
 
 from torch_port_helpers import ZOO_STEP_PARTS, check_variant_step, variant_step_pair
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,6 @@ import numpy as np
 import pytest
 
 from torch_port_helpers import ZOO_STEP_PARTS, check_variant_step, variant_step_pair
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(scope="module")

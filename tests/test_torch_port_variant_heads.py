@@ -30,7 +30,6 @@ from event_representation_study_tpu_torch.models.yolo import _default_anchors
 from event_representation_study_tpu_torch.train import losses, losses_variants as lv
 from event_representation_study_tpu_torch.utils.convert import flax_to_torch
 from torch_port_helpers import assert_close, close_to_scale, nchw, nhwc, random_variables
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 STRIDES = (8, 16, 32)
 CH = (16, 32, 64)

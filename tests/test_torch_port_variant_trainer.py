@@ -24,7 +24,6 @@ from event_representation_study_tpu_torch.models import build_model, init_weight
 from event_representation_study_tpu_torch.train import checkpoint
 from event_representation_study_tpu_torch.train.engine import Trainer
 from torch_port_helpers import SMALL, small_cfg
-from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 ARGS = ["--conf", "configs/gen1_optimized.py", "--batch-size", "2", "--epochs", "1",
         "--img-size", "64", "--num-events", "512", "--device", "cpu", "--override", *SMALL]

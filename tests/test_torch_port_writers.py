@@ -34,7 +34,7 @@ import torch
 from event_representation_study_tpu.utils import tb_native as jax_tb
 from event_representation_study_tpu_torch.utils import observability, profiling, tb_native
 from event_representation_study_tpu_torch.utils.tasks import TaskManager
-from torch_port_helpers import one_torch_thread, small_cfg  # noqa: F401
+from torch_port_helpers import small_cfg
 
 IMG = np.arange(6 * 5 * 3, dtype=np.uint8).reshape(6, 5, 3) * 2
 

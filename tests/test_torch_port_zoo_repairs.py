@@ -19,7 +19,15 @@ from event_representation_study_tpu_torch.models import backbones as TB
 from event_representation_study_tpu_torch.models import yolo as TY
 from event_representation_study_tpu_torch.utils.config import load_config
 from event_representation_study_tpu_torch.utils.convert import flax_to_torch, to_flax_leaves
-from torch_port_helpers import SMALL, assert_close, jax_leaves, nchw, nhwc, random_variables
+from torch_port_helpers import (
+    SMALL,
+    assert_close,
+    eval_outputs,
+    jax_leaves,
+    nchw,
+    nhwc,
+    random_variables,
+)
 
 
 def _x(shape, seed):
@@ -48,9 +56,7 @@ def test_space_to_depth_matches_jax():
     model = TY.build_model(cfg, 2, device="cpu")
     model.load_state_dict(flax_to_torch(variables), strict=True)
     assert model.backbone.stem.conv.weight.shape[1:] == (48, 3, 3)
-    want = np.asarray(jax.jit(lambda v, a: jm.apply(v, a, False))(variables, x))
-    with torch.no_grad():
-        got = model.eval()(nchw(x)).numpy()
+    got, want = eval_outputs(jm, variables, model, x)
     assert_close("s2d boxes px", got[..., :4], want[..., :4], atol=1e-3)
     assert_close("s2d scores", got[..., 4:], want[..., 4:], atol=1e-4)
 

@@ -1,7 +1,19 @@
 """Shared parts of the PyTorch-port parity tests (tests/test_torch_port_*.py):
 the comparison that reports its error, a shrunk paper config, random JAX
 detector variables drawn with numpy, the detector and serve pairs built on
-them, and a NumPy stand-in for the search's BNN surrogate."""
+them, and a NumPy stand-in for the search's BNN surrogate.
+
+Importing this module sets torch to one intra-op thread, for the whole
+process. The test lane runs six xdist workers on the machine's cores; torch's
+default of one thread per core in each of them starves the other workers'
+torch and JAX work (the trainer file read 690.5 s in the lane against
+36.2 s alone). Every worker imports every test module while it collects, and a
+process spawned by :class:`SpawnedGroup` imports this module to unpickle
+its target, so the policy holds for each of them before their first test.
+A port test file imports its helpers from here; one that imports nothing
+from here runs on torch's default threads only when it runs alone. A file
+whose float32 reading at one thread exceeds its bound takes torch's
+default back with :func:`default_torch_threads` and says which reading."""
 import functools
 import json
 import os
@@ -9,6 +21,9 @@ import os
 import numpy as np
 import pytest
 import torch
+
+TORCH_DEFAULT_THREADS = torch.get_num_threads()
+torch.set_num_threads(1)
 
 CFG_PATH = "configs/gen1_optimized.py"
 SMALL = ["model.depth_multiple=0.2", "model.width_multiple=0.125"]
@@ -182,21 +197,18 @@ def eval_outputs(jax_model, variables, model, x):
     return got, want
 
 
+@pytest.fixture(scope="module")
+def default_torch_threads():
+    """torch's default intra-op threads (one a core) while a test module that
+    uses this fixture runs, one thread again after it."""
+    torch.set_num_threads(TORCH_DEFAULT_THREADS)
+    yield
+    torch.set_num_threads(1)
+
+
 # -- the search (tests/test_torch_port_search_*.py) --------------------------
 
 SEARCH_DRAWS = 24
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread while a test module that imports this fixture
-    runs (the search's, most of the training variants' and deploy tools'):
-    their many small torch ops spin the thread pool on more cores than they
-    gain from, which slows every file of a parallel test run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _option_blocks(option_counts):
@@ -784,15 +796,15 @@ def free_port() -> int:
 
 
 def _group_worker(fn, rank, world, port, join, queue, kwargs):
-    """One rank: torch on one thread, a gloo group over ``tcp://`` through
-    the port's ``init_distributed`` (unless ``join`` is false: then ``fn``
-    gets the free ``port`` to make its own), then ``fn(rank, world,
-    **kwargs)``; puts (rank, result) or (rank, the traceback)."""
+    """One rank (torch on one thread, as this module's import set it): a
+    gloo group over ``tcp://`` through the port's ``init_distributed``
+    (unless ``join`` is false: then ``fn`` gets the free ``port`` to make
+    its own), then ``fn(rank, world, **kwargs)``; puts (rank, result) or
+    (rank, the traceback)."""
     import datetime
     import traceback
 
     try:
-        torch.set_num_threads(1)
         from event_representation_study_tpu_torch.parallel.dist import init_distributed
 
         if join:
