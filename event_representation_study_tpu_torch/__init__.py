@@ -11,12 +11,14 @@ raise when CUDA is requested and absent (:func:`resolve_device`).
 """
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """The device an entry point runs on. ``cuda`` must exist: there is no
-    silent fall-back to the CPU."""
+    silent fall-back to the CPU. (torch is imported here, not with the
+    package: the host batch's worker processes import the package and need
+    only numpy.)"""
+    import torch
+
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

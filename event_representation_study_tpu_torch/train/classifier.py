@@ -200,7 +200,7 @@ class ClassifierTrainer:
 
     def _batch_of(self, ds, indices):
         """The batch on the device and its labels on the host, assembled on
-        the dataset's thread pool (``NImageNetDataset.batch``)."""
+        the dataset module's worker processes (``NImageNetDataset.batch``)."""
         if self.rep_fn is None:
             imgs = ds.host_images(indices)
             labels = np.array([ds.labels[int(i)] for i in indices], np.int64)
@@ -215,8 +215,8 @@ class ClassifierTrainer:
         MiniBatchTracker brackets data loading and inference with separate
         timers (base/utils/tracker.py:1-60, minibatch_trainer.py's
         start_load_timing/start_infer_timing); here ``load_s`` is the step
-        thread's wall time on the host batch (its wait on the pool's decode
-        and prep, the copy to the device) and
+        thread's wall time on the host batch (its wait on the workers'
+        decode and prep, the copy to the device) and
         ``infer_s`` the device step including the readback that forces
         completion."""
         rng = rng or np.random.default_rng(self.seed)
